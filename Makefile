@@ -1,6 +1,6 @@
 PY ?= python
 
-.PHONY: all native test test-fast bench demo clean
+.PHONY: all native test test-fast bench smoke demo clean
 
 all: native
 
@@ -27,6 +27,9 @@ test-fast: native
 
 bench:
 	$(PY) bench.py
+
+smoke:
+	$(PY) chip_smoke.py
 
 demo:
 	$(PY) -m solid_dsp_tpu demo

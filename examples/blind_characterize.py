@@ -20,7 +20,7 @@ import sys as _sys
 
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
 
-if not _os.environ.get("SOLID_DSP_EXAMPLES_TPU"):
+if not _os.environ.get("SOLID_DSP_EXAMPLES_ACCEL"):
     import jax as _jax
 
     _jax.config.update("jax_platforms", "cpu")

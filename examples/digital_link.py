@@ -1,4 +1,4 @@
-"""Digital QPSK link: every round-2 block in one signal path.
+"""Digital QPSK link: every link block in one signal path.
 
     bits -> LinearModem (RRC) -> TxChain upconversion
          -> channel: AWGN + DC offset + IQ imbalance + CFO
@@ -13,7 +13,7 @@ import sys as _sys
 
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
 
-if not _os.environ.get("SOLID_DSP_EXAMPLES_TPU"):
+if not _os.environ.get("SOLID_DSP_EXAMPLES_ACCEL"):
     import jax as _jax
 
     _jax.config.update("jax_platforms", "cpu")

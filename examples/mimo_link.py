@@ -6,7 +6,7 @@
     transmit diversity turns deep fades into the sum channel |h0|^2+|h1|^2.
     Part C — per-tone detection inside an OFDM frame (one-tap MIMO per
     subcarrier): the batched detectors run over all (symbol, subcarrier)
-    pairs in one call — TPU-shaped joint detection.
+    pairs in one call — accelerator-shaped joint detection.
 
     python examples/mimo_link.py
 """
@@ -16,7 +16,7 @@ import sys as _sys
 
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
 
-if not _os.environ.get("SOLID_DSP_EXAMPLES_TPU"):
+if not _os.environ.get("SOLID_DSP_EXAMPLES_ACCEL"):
     import jax as _jax
 
     _jax.config.update("jax_platforms", "cpu")

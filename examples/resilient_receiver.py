@@ -1,6 +1,6 @@
 """Resilient production receiver: stream-scan chain + supervised recovery.
 
-Demonstrates the round-2 serving stack end to end:
+Demonstrates the serving stack end to end:
 
 * ``make_rx_chain_stream`` — one dispatch processes the whole stream
   (lax.scan over blocks) with the exact-semantics Newton AGC,

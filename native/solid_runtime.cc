@@ -1,6 +1,6 @@
 // solid_runtime — native runtime for solid_dsp_tpu.
 //
-// TPU-native equivalent of the reference's runtime-side pieces
+// Equivalent of the reference's runtime-side pieces
 // (juliantos/solid-dsp src/circular_buffer/mod.rs:55-628 — the O(1) ring
 // buffer that backs streaming IO), extended with what a production SDR
 // framework needs around the JAX compute path:

@@ -1,14 +1,14 @@
-"""solid_dsp_tpu — a TPU-native DSP/SDR framework.
+"""solid_dsp_tpu — a JAX DSP/SDR framework for an NVIDIA GPU.
 
-A brand-new JAX/XLA/Pallas framework with the capabilities of the Rust
-streaming-DSP library ``juliantos/solid-dsp`` (see /root/reference), re-designed
-TPU-first:
+A JAX/XLA framework with the capabilities of the Rust
+streaming-DSP library ``juliantos/solid-dsp``, re-designed for an
+accelerator:
 
 * every component is a pure block transform ``(state, x_block) -> (y_block, state)``
   suitable for ``jax.jit``, ``lax.scan`` over blocks and ``shard_map`` over device
   meshes — instead of the reference's sample-at-a-time mutable-state objects;
-* inner loops (FIR taps, polyphase banks, DFT codelets) map to MXU matmuls or
-  XLA convolutions/FFTs, with Pallas kernels for fused hot paths;
+* inner loops (FIR taps, polyphase banks, DFT codelets) map to matmuls or
+  XLA convolutions/FFTs (cuBLAS/cuFFT on the GPU);
 * streaming state (filter tails, IIR biquad state, NCO phase, AGC gain,
   decimator phase) lives in explicit pytree carries, which double as the
   checkpoint format and the device-halo payload for multi-chip execution.

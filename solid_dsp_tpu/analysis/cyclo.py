@@ -1,4 +1,4 @@
-"""Cyclostationary analysis: time-smoothed cyclic periodograms (TPU).
+"""Cyclostationary analysis: time-smoothed cyclic periodograms.
 
 Digitally modulated signals are cyclostationary: their autocorrelation is
 periodic in the symbol clock (and, for non-circular constellations like
@@ -20,7 +20,7 @@ which keeps the inter-frame cycle-phase rotation automatically correct
 compensation the FFT-accumulation method applies explicitly).  The whole
 candidate-alpha grid evaluates as one batched STFT stack — frames x
 alphas x nfft — so the work is windowed-FFT dominated and lands on the
-TPU's native batched-FFT/MXU path, exactly like analysis/spectral.py.
+batched-FFT/matmul path, exactly like analysis/spectral.py.
 
 The normalized magnitude (spectral coherence)
 

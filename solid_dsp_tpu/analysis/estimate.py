@@ -5,8 +5,8 @@ models/framesync.py) and beside the array layer (models/array_proc.py):
 
 * ``tone_freq_kay`` — Kay's weighted phase-difference estimator, the
   closed-form near-CRLB single-tone frequency estimator at moderate+ SNR
-  (Kay, IEEE T-ASSP 1989).  One elementwise pass + a dot product: ideal
-  TPU shape, no search.
+  (Kay, IEEE T-ASSP 1989).  One elementwise pass + a dot product, no
+  search.
 * ``tone_freq_fft`` — coarse periodogram argmax + Jacobsen/Quinn-style
   3-point complex-ratio interpolation; robust from low SNR and over the
   full Nyquist range, accuracy ~ 1/(10 N nfft_pad) cycles/sample.

@@ -5,12 +5,12 @@ Burg's method on the raw samples, AR power spectra, and the FIR/IIR
 lattice filter structures that realize the models with the reflection
 coefficients directly.
 
-TPU formulation: every routine is a fixed-shape jit that batches over
+Formulation: every routine is a fixed-shape jit that batches over
 leading axes.  The order recursions (Levinson, Burg) run as
 ``lax.fori_loop`` over the model order p with masked fixed-size (p+1)
 coefficient vectors — p is small (tens), the per-step work is
 elementwise/dot over the batch, so the sequential depth is p, not N.
-The data axis N only ever appears inside dense dot products (MXU/VPU
+The data axis N only ever appears inside dense dot products (matmul/elementwise
 shapes).  The synthesis lattice is the one genuinely per-sample
 recurrence (state = p reflection stages) and runs as a ``lax.scan``
 over time, like ops/iir.py's direct-form core.
@@ -122,7 +122,7 @@ def burg(x, order: int):
     windowing the data — markedly better poles than the autocorrelation
     method on short records.  x: (..., N) -> (a (..., p+1), k (..., p),
     e (...,)).  The order loop is ``fori_loop``; per order the work is
-    two masked length-N dots (VPU reductions), so the whole estimate is
+    two masked length-N dots (vector reductions), so the whole estimate is
     one jit with sequential depth p.
     """
     x = jnp.asarray(x)

@@ -3,7 +3,7 @@
 The reference exposes RSSI via the AGC (auto_gain_control/mod.rs:442-444)
 but has no SNR/quality estimation; every real receiver needs it for link
 adaptation and monitoring.  All estimators are one-pass block reductions
-(VPU work, shardable with a final psum).
+(elementwise work, shardable with a final psum).
 """
 
 from __future__ import annotations

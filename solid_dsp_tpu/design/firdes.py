@@ -7,7 +7,7 @@ filter_crosscorrelation (:487-525), filter_isi (:552-576),
 filter_energy (:602-640).
 
 All functions are design-time NumPy float64 (exact reference math); the
-resulting tap vectors feed the TPU block-FIR ops in ``solid_dsp_tpu.ops.fir``.
+resulting tap vectors feed the block-FIR ops in ``solid_dsp_tpu.ops.fir``.
 """
 
 from __future__ import annotations

@@ -7,7 +7,7 @@ The reference evaluates these with fixed-length series (64 terms for I_nu,
 128 for J_nu) and a recursive small-argument lnGamma; filter-design golden
 values (BASELINE.md §B) depend on those exact formulas, so we reproduce the
 same series in float64 NumPy here.  These are design-time (host) functions;
-vectorized over NumPy arrays.  TPU compute paths never call them per-sample.
+vectorized over NumPy arrays.  Device compute paths never call them per-sample.
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """Dtype policy.
 
-The reference library computes everything in f64 / Complex<f64>.  On TPU the
-fast path is f32/c64 (and bf16 inside MXU matmuls); golden-parity tests run on
+The reference library computes everything in f64 / Complex<f64>.  On the
+GPU the fast path is f32/c64 (TF32 tensor cores inside matmuls at
+"default" precision); golden-parity tests run on
 CPU with x64 enabled.  Every op takes an optional ``dtype`` and defaults to
 the *current* JAX x64 setting so the same code serves both modes.
 """

@@ -8,7 +8,7 @@ extended squitter (DF17): 8 us preamble (pulses at 0, 1, 3.5, 4.5 us) then
 the first 88 by the Mode S generator 0x1FFF409 (for DF17 the AP field is
 the parity itself, so a clean frame has remainder 0).
 
-TPU mapping: CRC-24 is ONE (88, 24) GF(2) matmul (batched over frames);
+Formulation: CRC-24 is ONE (88, 24) GF(2) matmul (batched over frames);
 PPM demod is a reshape + half-energy compare; preamble detection is a
 normalized correlation of the power envelope against the 16-chip preamble
 mask (conv1d_mxu) — no gathers, no per-bit loops.

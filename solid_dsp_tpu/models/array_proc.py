@@ -3,7 +3,7 @@
 Multi-antenna capability absent from the reference (single-stream
 library).  Everything here is dense linear algebra over an (N_antennas, T)
 snapshot matrix — covariance outer products, eigendecompositions, steering
-projections — i.e., exactly MXU-shaped work, and the antenna axis is a
+projections — i.e., exactly matmul-shaped work, and the antenna axis is a
 natural shard axis for large arrays.
 
 Conventions: narrowband model  x(t) = sum_s a(theta_s) s_s(t) + n(t) with
@@ -37,7 +37,7 @@ def ula_steering(n_antennas: int, theta, spacing: float = 0.5):
 
 @jax.jit
 def spatial_covariance(X: jnp.ndarray) -> jnp.ndarray:
-    """R = X X^H / T for an (N, T) snapshot block — one MXU matmul."""
+    """R = X X^H / T for an (N, T) snapshot block — one matmul."""
     T = X.shape[-1]
     return (X @ jnp.conj(X).T) / T
 

@@ -3,12 +3,12 @@
 The reference has no link simulator (it has no modem layer at all —
 src/modulation is an empty stub, SURVEY §2 #33); every SDR framework user
 ends up hand-rolling one.  This module makes the textbook symbol-rate AWGN
-link a first-class, TPU-shaped primitive:
+link a first-class, accelerator-shaped primitive:
 
 * ``ber_sweep`` — uncoded BER across a whole Eb/N0 grid in ONE jitted
   program: the modulated burst is generated once and ``vmap`` fans the
   AWGN + hard-slicing across SNR points, so a 20-point × 1M-bit sweep is a
-  single device launch dominated by MXU/VPU work, not Python.
+  single device launch dominated by matmul/elementwise work, not Python.
 * ``link_sim`` — coded links: any ``encode``/``decode`` pair (BlockCode,
   ConvCode, LDPCCode, TurboCode, PolarCode, or your own callables) measured
   for BER and BLER per SNR point, with the Eb/N0 → noise-variance mapping

@@ -1,4 +1,4 @@
-"""Short block codes: Hamming, SECDED, Golay, repetition (TPU formulation).
+"""Short block codes: Hamming, SECDED, Golay, repetition.
 
 Rounds out the FEC stack (convolutional/turbo in fec.py/turbo.py, LDPC,
 polar, Reed-Solomon elsewhere) with the classic short binary block codes a
@@ -9,8 +9,8 @@ lives in pocsag.py), DMR/P25 (Golay), and memory-style parity protection
 (SECDED).  The reference itself has no FEC at all (its modulation layer is
 an empty stub, SURVEY §2 #33); this module is beyond-reference surface.
 
-TPU formulation: every encoder is a GF(2) matmul (``(blocks, k) @ (k, n)
-mod 2`` — integer dot on the MXU, then a parity mask), and every decoder is
+Formulation: every encoder is a GF(2) matmul (``(blocks, k) @ (k, n)
+mod 2`` — an integer matmul, then a parity mask), and every decoder is
 a syndrome matmul followed by a host-precomputed syndrome→error-pattern
 lookup table applied as a device gather + XOR.  No per-bit Python loops on
 the hot path; all host precomputation is cached per code.
@@ -53,7 +53,7 @@ def _bits_msb_first(value: int, width: int) -> np.ndarray:
 
 
 def gf2_encode(data, G) -> jnp.ndarray:
-    """Batched GF(2) encode: (blocks, k) @ G (k, n) mod 2, int dot on MXU."""
+    """Batched GF(2) encode: (blocks, k) @ G (k, n) mod 2, an integer matmul."""
     return (jnp.dot(data.astype(jnp.int32), jnp.asarray(G, jnp.int32)) & 1)
 
 

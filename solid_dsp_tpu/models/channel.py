@@ -4,7 +4,7 @@ The reference has no channel simulation at all (it is a receive-side DSP
 library); link-level validation of the modem/FEC stack needs controlled
 impairments and the matching closed-form error-rate baselines.  Everything
 here is a pure block transform on device (jax.random noise, one-FFT
-Doppler-shaped fading, MXU convolution for multipath), so channels can run
+Doppler-shaped fading, convolution for multipath), so channels can run
 inside the same jit/shard_map programs as the transceiver under test.
 
 Theory helpers (``ber_theory``) give the textbook AWGN bit-error rates the

@@ -3,9 +3,9 @@
 The production shape of driver config 5: one wideband stream enters, the
 polyphase channelizer splits it into M critically-sampled channels, and a
 shared IIR biquad cascade (e.g. a channel-selectivity lowpass) runs over
-all M channels at once through the Pallas sequential bank
-(ops/pallas_kernels.iir_bank_apply — 50.8 Gchannel-samples/s on v5e),
-optionally followed by per-channel block AGC.
+all M channels at once (ops/iir.iir_bank_apply: one sequential scan over
+time, channels side by side), optionally followed by per-channel block
+AGC.
 
 Everything is one jittable block transform; the state pytree carries the
 channelizer tail, the per-channel biquad state, and per-channel AGC gains.
@@ -13,12 +13,11 @@ channelizer tail, the per-channel biquad state, and per-channel AGC gains.
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
 from ..ops import agc as agc_ops
-from ..ops.pallas_kernels import iir_bank_apply, iir_bank_init
+from ..ops.iir import iir_bank_apply, iir_bank_init
 from ..streaming.state import ChainState
 from .channelizer import PolyphaseChannelizer
 from ..utils.transfer import zeros_device, zeros_like_device
@@ -54,23 +53,20 @@ class ChannelBank:
 
     def __init__(self, num_channels: int, taps_per_branch: int = 8,
                  sos: np.ndarray | None = None, agc_bandwidth: float = 0.0,
-                 attenuation: float = 80.0, backend: str = "xla",
+                 attenuation: float = 80.0,
                  squelch_high_db: float | None = None,
                  squelch_low_db: float | None = None,
                  squelch_window: int = 32):
         # sos: (S, 5) shared across channels, or (S, 5, M) per-channel
-        # cascades (both handled by ops.pallas_kernels.iir_bank_apply)
+        # cascades (both handled by ops.iir.iir_bank_apply)
         self.M = int(num_channels)
         self.channelizer = PolyphaseChannelizer(
-            self.M, taps_per_branch, attenuation, dtype=jnp.complex64,
-            backend=backend,
-        )
+            self.M, taps_per_branch, attenuation, dtype=jnp.complex64)
         self.sos = np.asarray(sos if sos is not None else design_channel_sos(),
                               dtype=np.float32)
         self.agc_bandwidth = float(agc_bandwidth)
         self._iir_state = iir_bank_init(self.sos.shape[0], self.M)
         self._agc_state = agc_ops.agc_init(jnp.float32, batch_shape=(self.M,))
-        self._interpret = jax.default_backend() != "tpu"
         # optional per-channel energy squelch (models.detect): channels
         # whose filtered energy never crossed high_db emit zeros
         if squelch_low_db is not None and squelch_high_db is None:
@@ -97,8 +93,7 @@ class ChannelBank:
         Y = self.channelizer.execute_block(x)  # (T, M)
         Y, self._iir_state = iir_bank_apply(
             jnp.asarray(self.sos), self._iir_state,
-            jnp.asarray(Y, jnp.complex64), interpret=self._interpret,
-        )
+            jnp.asarray(Y, jnp.complex64))
         if self.squelch_high_db is not None:
             from . import detect
 

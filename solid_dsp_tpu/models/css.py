@@ -6,8 +6,8 @@ frequency k/N and wraps.  Demodulation is one multiply by the conjugate
 base chirp (dechirp — turns every shifted chirp into a pure tone) and
 one length-N FFT per symbol whose argmax IS the symbol — the whole
 burst demodulates as a single (n_sym, N) batched FFT + argmax, no
-sequential state anywhere.  TPU-wise this is the friendliest modem in
-the family: two elementwise passes and a batched pow2 FFT.
+sequential state anywhere.  For an accelerator this is the friendliest
+modem in the family: two elementwise passes and a batched pow2 FFT.
 
 The cyclic-shift structure gives LoRa its trademark negative-SNR
 operation: the FFT integrates the whole symbol coherently for a

@@ -23,7 +23,7 @@ defaults measure ~27 dB in-band SNR on a two-tone voice-band signal
 (tests/test_cvsd.py); at 1x it degrades to a few dB, which is inherent
 to 1-bit delta modulation, not a tuning artifact.
 
-TPU formulation: the recursion is inherently per-sample (the step-size
+Formulation: the recursion is inherently per-sample (the step-size
 state feeds back through the comparator), so encode/decode run as
 ``lax.scan`` with a (reference, step, bit-history) carry — the same
 honest-sequential treatment as ops/agc.py's exact path.  Both directions

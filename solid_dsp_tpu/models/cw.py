@@ -5,7 +5,7 @@ the detection stack: the decoder is envelope detection + an adaptive
 threshold + run-length classification, with the dit period estimated
 blindly from the mark-duration statistics (no WPM prior).
 
-TPU formulation: the per-sample work (envelope, smoothing, threshold)
+Formulation: the per-sample work (envelope, smoothing, threshold)
 is batched device math; the run-length/ symbol logic operates on the
 tiny sequence of on/off segments host-side.  Decoding is tolerant to
 +-30% timing jitter per element (hand keying) via ratio thresholds.

@@ -8,7 +8,7 @@ reference but standard in deployed SDR.  The memory-polynomial (MP) model
     y[n] = sum_{k=0}^{K-1} sum_{q=0}^{Q-1} c[k, q] * x[n-q] |x[n-q]|^(2k)
 
 — odd-order nonlinearity with Q taps of memory.  Everything here is
-MXU-shaped: the basis is a (T, K*Q) matrix, fitting is one regularized LS
+matmul-shaped: the basis is a (T, K*Q) matrix, fitting is one regularized LS
 solve of the (K*Q, K*Q) normal equations, application is one matmul.
 
 Learning uses the *indirect* architecture: fit a postdistorter from the

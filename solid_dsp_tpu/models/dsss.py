@@ -3,11 +3,11 @@
 New model family (the reference has no spread-spectrum support; its
 modulation module is an empty stub, src/modulation/mod.rs:1).  Built on
 the framework's sequence generators (utils/sequences.py: m-sequences,
-Gold codes, Zadoff-Chu) and the MXU conv path:
+Gold codes, Zadoff-Chu) and the conv path:
 
 * spreading is a rank-1 outer product symbol x chip (one broadcast
   multiply);
-* despreading is a (T, N) x (N,) matmul — the MXU formulation;
+* despreading is a (T, N) x (N,) matmul;
 * code acquisition is one strided correlation over all chip offsets
   (conv1d_mxu), the same machinery as preamble search
   (models/framesync.py);
@@ -70,7 +70,7 @@ def dsss_acquire(x, code, max_offset: int):
 
     Correlates ``x`` against the code at every lag in [0, max_offset) and
     sums despread energy over the symbols that fit — one strided
-    MXU correlation per lag, batched as a single conv1d_mxu call with the
+    correlation per lag, batched as a single conv1d_mxu call with the
     code as taps.  Returns (offset, metric) where metric[k] is the mean
     |correlation|^2 at lag k (peak = code-aligned).
     """

@@ -1,6 +1,6 @@
 """DTMF (touch-tone) generator and decoder.
 
-The telephony classic, built directly on the framework's MXU Goertzel
+The telephony classic, built directly on the framework's matmul Goertzel
 bank (analysis/spectral.py): each analysis frame projects onto the 8
 DTMF probe tones in ONE (F, N) @ (N, 8) matmul, then a tiny host state
 machine validates the 2-of-8 structure (one row + one column tone

@@ -1,4 +1,4 @@
-"""FEC: convolutional encoding + Viterbi decoding (TPU formulation).
+"""FEC: convolutional encoding + Viterbi decoding.
 
 Forward error correction rounds out the digital-link stack (modem family +
 carrier/timing recovery + impairment correction are already in).  The

@@ -9,7 +9,7 @@ survives interference that would erase a fixed-frequency carrier
 outright (demonstrated in tests/test_fhss.py with a jammer 30 dB above
 the signal).
 
-TPU formulation: hopping is a closed-form phase rotation — the block
+Formulation: hopping is a closed-form phase rotation — the block
 reshapes to (n_dwells, dwell), each dwell multiplies by
 exp(2j pi f_h (t0 + arange(dwell))) with per-dwell frequency gathered
 from the (tiny) schedule — two elementwise passes, no sequential state.

@@ -2,7 +2,7 @@
 
 Completes the acquisition path around utils.sequences: a known preamble
 (Zadoff-Chu / Gold / m-sequence BPSK) is located with a normalized matched
-filter — one MXU correlation plus a sliding-energy normalization, so the
+filter — one correlation plus a sliding-energy normalization, so the
 detection metric |rho| in [0, 1] is invariant to input scale and the
 threshold has a constant false-alarm interpretation against noise.
 

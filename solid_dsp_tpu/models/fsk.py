@@ -8,7 +8,7 @@ by the FM phase accumulator); demodulation is either
   (cheap, non-coherent, rides the existing fm/fir machinery), or
 * ``fsk_demod_matched`` — bank of tone correlators (the optimal
   non-coherent detector): one reshape + matmul against M complex tones —
-  pure MXU work, and the natural multi-channel formulation.
+  pure matmul work, and the natural multi-channel formulation.
 """
 
 from __future__ import annotations
@@ -65,7 +65,7 @@ def fsk_demod_matched(x, sps: int, m_ary: int, separation: float):
     """Non-coherent tone-correlator bank: argmax_m |sum_n x e^{-j2pi f_m n}|.
 
     One strided multi-output correlation — conv1d_mxu with an (sps, M)
-    tone bank and stride sps (the same MXU path as every other filter).
+    tone bank and stride sps (the same matmul path as every other filter).
     """
     from ..ops.fir import conv1d_mxu
 

@@ -4,7 +4,7 @@ Real radio front ends inject a DC spur (LO leakage) and IQ gain/phase
 imbalance (image spur); every production SDR stack corrects both before
 demodulation.  The reference has nothing here.  All estimators are batch
 reductions (means / second moments), so they are one pass over the block
-on the VPU and shard trivially.
+elementwise and shard trivially.
 
 Model: received r = dc + alpha * s + beta * conj(s) for the true signal s
 (the conj term IS the IQ imbalance).  The blind estimator assumes s is

@@ -5,10 +5,10 @@ empty module, SURVEY §2 #33); beyond the required FM/QPSK/AM this module
 gives the framework a liquid-dsp-class linear modem family:
 
 * gray-coded constellations: BPSK/QPSK/8PSK/...-PSK, 16/64/256-QAM,
-* ideal RRC pulse shaping (zero-stuff + MXU convolution),
+* ideal RRC pulse shaping (zero-stuff + convolution),
 * matched filter + decimation receive path,
 * nearest-point slicing as ONE distance matmul over the constellation
-  (TPU-native: |y - c|^2 argmin batches on the MXU for any M),
+  (accelerator-native: |y - c|^2 argmin batches as matmuls for any M),
 * hard-decision bit demap + SER/BER helpers,
 * max-log soft demapping to bit LLRs (``demap_soft``) in the convention
   of ``models.fec.viterbi_decode(soft=True)`` — positive favors bit 0 —
@@ -146,7 +146,7 @@ def slice_symbols(y, points) -> jnp.ndarray:
 
     |y - c|^2 = |y|^2 - 2 Re(y conj(c)) + |c|^2; the |y|^2 term is common
     per sample, so argmax of Re(y conj(c)) - |c|^2/2 over the (T, M)
-    matrix decides — a single MXU-friendly outer product for any M.
+    matrix decides — a single matmul-friendly outer product for any M.
     """
     y = jnp.asarray(y)
     c = jnp.asarray(points).astype(y.dtype)
@@ -166,7 +166,7 @@ def demap_soft(y, points, noise_var=1.0) -> jnp.ndarray:
     the LLR reduces to differences of the SAME metric matrix the hard
     slicer computes: m(c) = Re(y conj(c)) - |c|^2/2, giving
     LLR_i = (2/noise_var) * (max_{b_i=0} m - max_{b_i=1} m) — one
-    (T, M) MXU-friendly product for all bits of all symbols.
+    (T, M) matmul-friendly product for all bits of all symbols.
 
     Returns (T * k,) LLRs, bit order matching ``symbols_to_bits``
     (MSB first within each symbol).
@@ -191,7 +191,7 @@ def demap_soft(y, points, noise_var=1.0) -> jnp.ndarray:
 def pulse_shape(iq_symbols, sps: int, delay_symbols: int = 6,
                 rolloff: float = 0.35, dtype=jnp.complex64,
                 flush: bool = False):
-    """Ideal RRC pulse shaping: explicit zero-stuff + MXU convolution.
+    """Ideal RRC pulse shaping: explicit zero-stuff + convolution.
 
     With ``flush=False`` the output is n_symbols*sps samples and the
     ring-out of the last 2*delay_symbols symbols is TRUNCATED (their

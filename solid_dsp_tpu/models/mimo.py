@@ -6,11 +6,11 @@ detectors for y = H s + n and the classic Alamouti space-time block
 code.  The reference library is strictly single-antenna; this extends
 the link layer the way array_proc extended analysis.
 
-TPU formulation: everything is batched small-matrix algebra over the
+Formulation: everything is batched small-matrix algebra over the
 (time/subcarrier) axis — (..., R, T) channel tensors against (..., R)
 observations via einsum/solve, and the ML detector enumerates the
 M^T hypothesis constellation as ONE (batch, M^T) distance matmul
-(MXU work; M^T is 16-4096 for the practical 2x2/4x4 QPSK/16QAM cases,
+(matmul work; M^T is 16-4096 for the practical 2x2/4x4 QPSK/16QAM cases,
 a trivially small inner axis).  No per-symbol Python loops anywhere.
 
 Conventions: H[..., r, t] is the complex gain from TX antenna t to RX
@@ -78,7 +78,7 @@ def ml_detect(H, y, constellation):
 
     Enumerates all M^T transmit vectors and minimizes ||y - H s||^2 as
     one batched matmul: Hs for every hypothesis is (..., R, M^T) =
-    H @ S_all, so the search is a single MXU contraction + argmin.
+    H @ S_all, so the search is a single contraction + argmin.
     Returns (indices (..., T), points (..., T)).  Intended for small
     M^T (2x2 QPSK = 16, 2x2 16QAM = 256, 4x4 QPSK = 256).
     """

@@ -7,7 +7,7 @@ per-channel hysteresis occupancy decision.  Emits EVENTS — (channel,
 start_block, end_block, peak_db) — plus a running duty-cycle summary,
 i.e. what a monitoring service stores, not raw spectra.
 
-TPU formulation: the per-block work is ONE channelizer pass + reductions
+Formulation: the per-block work is ONE channelizer pass + reductions
 (an (T, M) power map collapsed to per-channel means) inside a single
 jit; the event bookkeeping on the tiny (M,) occupancy vector is host
 code.  Thresholds are RELATIVE to the tracked noise floor, so the
@@ -40,8 +40,7 @@ class SpectrumMonitor:
 
     def __init__(self, num_channels: int = 64, taps_per_branch: int = 8,
                  high_db: float = 10.0, low_db: float = 6.0,
-                 alpha: float = 0.9, dtype=jnp.complex64,
-                 backend: str = "xla"):
+                 alpha: float = 0.9, dtype=jnp.complex64):
         if not (low_db < high_db):
             raise ValueError("need low_db < high_db (hysteresis)")
         if not (0.0 < alpha <= 1.0):
@@ -51,20 +50,9 @@ class SpectrumMonitor:
         self.low_db = float(low_db)
         self.alpha = float(alpha)
         self.dtype = dtype
-        self.backend = backend
         taps = np.asarray(channelizer_taps(self.M, taps_per_branch),
                           np.complex64)
         self._taps = taps
-        if backend == "fused":
-            # ONE-kernel Mosaic filterbank (models/channelizer.py): the
-            # fastest measured path; bf16 branch precision is plenty for
-            # dB-scale occupancy powers
-            from .channelizer import PolyphaseChannelizer
-
-            self._chan = PolyphaseChannelizer(
-                self.M, taps_per_branch, backend="fused", precision="fast")
-        else:
-            self._chan = None
         self._state = channelizer_init(self.M, taps_per_branch, dtype)
         self._p_ema = None          # (M,) linear power EMA
         self._on = np.zeros(self.M, bool)
@@ -92,11 +80,7 @@ class SpectrumMonitor:
         if x.shape[-1] % self.M:
             raise ValueError(
                 f"block length must be a multiple of {self.M}")
-        if self._chan is not None:
-            Y = self._chan.execute_block(x)
-            p = jnp.mean(jnp.real(Y * jnp.conj(Y)), axis=-2)
-        else:
-            p, self._state = self._powers(self._state, x)
+        p, self._state = self._powers(self._state, x)
         p = np.asarray(p, np.float64)
         if self._p_ema is None:
             self._p_ema = p

@@ -1,7 +1,7 @@
 """CP-OFDM modem: modulation, Schmidl-Cox sync, CFO correction, one-tap EQ.
 
 New capability rounding out the modem layer (reference has none): OFDM is
-the most TPU-natural waveform — modulation is one batched IFFT, demodulation
+the most accelerator-natural waveform — modulation is one batched IFFT, demodulation
 one batched FFT, equalization one elementwise multiply; the only sequential
 logic (frame sync) is a sliding correlation computed with the same
 ``conv1d_mxu``/cumsum machinery as everything else.
@@ -88,7 +88,7 @@ def schmidl_cox_metric(x, nfft: int):
     """Sliding Schmidl-Cox timing metric M(d) = |P(d)|^2 / R(d)^2 with
     P(d) = sum_m conj(x[d+m]) x[d+m+N/2], R(d) = energy of the second half.
 
-    Both moving sums are ones-kernel convs (O(L), MXU).  Returns (M, P).
+    Both moving sums are ones-kernel convs (O(L), matmul).  Returns (M, P).
     """
     half = nfft // 2
     prod = jnp.conj(x[..., :-half]) * x[..., half:]

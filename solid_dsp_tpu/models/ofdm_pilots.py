@@ -1,13 +1,13 @@
 """Pilot-aided OFDM: comb pilots, LS channel estimation, CPE tracking.
 
 802.11/DVB-style machinery on top of models.ofdm (the reference has no
-modem layer at all; rounds out the roadmap's pilot item).  TPU-first
+modem layer at all; rounds out the roadmap's pilot item).  accelerator-first
 formulations:
 
 * pilot insertion/extraction uses static index sets (host-side numpy) —
   scatter/gather with compile-time indices lowers to cheap slices,
 * LS-at-pilots -> all-carrier interpolation is ONE precomputed sparse
-  interpolation matrix applied as a (T, P) @ (P, K) matmul on the MXU,
+  interpolation matrix applied as a (T, P) @ (P, K) matmul,
   not a per-carrier interp loop,
 * common-phase-error (residual CFO/phase-noise) tracking is a per-symbol
   pilot correlation — a batched reduction, no sequential scan.
@@ -98,7 +98,7 @@ def interp_matrix(pilot_idx: np.ndarray, n_active: int,
     two bracketing pilots gets the two-point weights, rows at pilot
     positions are one-hot, and positions outside the pilot span clamp to
     the nearest pilot.  Host-side numpy — the product with per-symbol
-    pilot estimates is the MXU matmul.
+    pilot estimates is the matmul.
     """
     pil = np.asarray(pilot_idx, np.int64)
     P = pil.size

@@ -3,7 +3,7 @@
 Fourth FEC family (after convolutional/Viterbi, Reed-Solomon, LDPC —
 models/fec.py, rs.py, ldpc.py); the reference has no FEC at all.
 
-TPU-first choices:
+accelerator-first choices:
 
 * Encoding is the F^{(x)n} butterfly network — log2(N) stages of block
   XORs on a reshaped lattice (no gathers, no sequential bit loop).

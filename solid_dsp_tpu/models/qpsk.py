@@ -9,7 +9,7 @@ Two carrier-recovery strategies:
   PLL coupling semantics (alpha = bw, beta = sqrt(alpha), nco/mod.rs:124-138)
   as a ``lax.scan``: the exact streaming recovery, vectorizable over
   channels.
-* ``qpsk_carrier_block`` — TPU-native block recovery: raise to the 4th power
+* ``qpsk_carrier_block`` — accelerator-native block recovery: raise to the 4th power
   (strips QPSK modulation), one FFT to locate the residual carrier, linear
   phase fit, derotate.  O(n log n) with zero sequential dependency — this is
   the throughput path for the 1 Gsample/s chain.
@@ -86,8 +86,12 @@ def qpsk_carrier_block(x: jnp.ndarray):
     a, b, c = _at(k - 1), _at(k), _at(k + 1)
     denom = a - 2 * b + c
     delta = jnp.where(jnp.abs(denom) > 1e-12, 0.5 * (a - c) / denom, 0.0)
-    kf = (k + delta) % n
-    f4 = 2.0 * jnp.pi * jnp.where(kf > n / 2, kf - n, kf) / n
+    # signed fractional bin, wrapped in integers before the fraction is
+    # added: (k + delta) % n would round a small negative offset near
+    # bin 0 to n (float32 spacing at n is far coarser than delta)
+    kd = k.astype(delta.dtype) + delta
+    kf = jnp.where(kd > n / 2, (k - n).astype(delta.dtype) + delta, kd)
+    f4 = 2.0 * jnp.pi * kf / n
     f_hat = f4 / 4.0
     t = jnp.arange(n)
     z = x4 * jnp.exp(-1j * f4[..., None] * t)

@@ -3,7 +3,7 @@ range-Doppler maps.
 
 Outside the reference's scope (communications only) but squarely in this
 framework's: detection/estimation over IQ streams, built from the same
-MXU conv + batched FFT machinery.  A coherent processing interval (CPI)
+conv + batched FFT machinery.  A coherent processing interval (CPI)
 is an (n_pulses, n_range) matrix; everything batches.
 
 * ``lfm_chirp`` — linear-FM pulse, the standard compression waveform.

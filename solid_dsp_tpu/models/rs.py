@@ -4,10 +4,10 @@ Completes the FEC family (convolutional/Viterbi + LDPC are in): RS is the
 outer code of CCSDS/DVB concatenated links and of storage framing, fixing
 burst errors that slip through the inner code.
 
-TPU formulation: GF(256) addition is XOR and multiplication by a CONSTANT
+Formulation: GF(256) addition is XOR and multiplication by a CONSTANT
 is linear over GF(2), so every fixed GF(256)-linear map — systematic
 parity generation AND syndrome computation — is a binary matrix acting on
-the message's bit-planes.  Both run as one int8 matmul mod 2 (MXU work,
+the message's bit-planes.  Both run as one int8 matmul mod 2 (matmul work,
 identical machinery to utils.bits CRC and models.ldpc encoding), batched
 over blocks.  The error-locator stage (Berlekamp-Massey + Chien + Forney)
 is data-dependent control flow over at most 2t=32 tiny iterations and runs

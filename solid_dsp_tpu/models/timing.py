@@ -5,7 +5,7 @@ receive path for streams sampled at sps > 1 samples/symbol.
 
 Two strategies, mirroring the carrier-recovery split in ``qpsk``:
 
-* ``symbol_sync_block`` — TPU-native feedforward: the Oerder&Meyr squaring
+* ``symbol_sync_block`` — accelerator-native feedforward: the Oerder&Meyr squaring
   estimator recovers the fractional timing offset of a whole block in
   closed form (one FFT-bin projection of |x|^2 — zero sequential
   dependency), then a windowed-sinc fractional-delay FIR (taps computed

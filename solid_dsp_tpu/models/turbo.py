@@ -1,4 +1,4 @@
-"""Turbo codes: parallel-concatenated RSC + iterative max-log-MAP (TPU).
+"""Turbo codes: parallel-concatenated RSC + iterative max-log-MAP.
 
 Completes the FEC family (convolutional/Viterbi in models/fec.py,
 Reed-Solomon in models/rs.py, LDPC in models/ldpc.py, polar in
@@ -203,10 +203,9 @@ def _bcjr_extrinsic(l_sys, l_par, l_apr, t_sys, t_par, tabs, m: int):
     per-step (S, S) transition matrices are built in parallel, R
     consecutive matrices are pre-combined with R-1 PARALLEL max-plus
     products (tropical semiring — associative), and the sequential scan
-    runs over T/R block steps instead of T.  The committed r4 row
-    measured ~0.9 us per scan STEP on this backend (scan overhead, not
-    compute — per-step work is tiny), so an 8x shorter scan is ~an 8x
-    faster decoder; the within-block prefix products reconstruct every
+    runs over T/R block steps instead of T.  Per-step work is tiny, so
+    the loop overhead of each scan step dominates and a shorter scan is
+    a faster decoder; the within-block prefix products reconstruct every
     per-step alpha/beta exactly (max-plus algebra, identical values to
     the step-by-step scan up to f32 max/add associativity).
     """

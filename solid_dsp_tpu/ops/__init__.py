@@ -20,6 +20,3 @@ from . import kalman  # noqa: F401
 from . import linrec  # noqa: F401
 from . import wavelet  # noqa: F401
 from . import zerophase  # noqa: F401
-
-# pallas_kernels / pallas_fft / pallas_resample imported lazily (they
-# pull in Mosaic machinery)

@@ -6,7 +6,7 @@ Evaluates the z-transform on a logarithmic spiral contour
 
 via Bluestein's identity nk = (n^2 + k^2 - (k-n)^2) / 2, which turns the
 chirped sum into ONE linear convolution — executed here as a pow2
-circular convolution with jnp.fft, the TPU-native fast path (the same
+circular convolution with jnp.fft, the accelerator-native fast path (the same
 machinery as ops/fft.py's any-size Bluestein backend, generalized to
 arbitrary contours and output counts).  All chirp tables are built
 host-side in float64/longdouble (quadratic phases are reduced mod 2*pi

@@ -1,4 +1,4 @@
-"""Fused digital down-converter: NCO mix + decimating FIR as one MXU pass.
+"""Fused digital down-converter: NCO mix + decimating FIR as one matmul pass.
 
 The reference chain idiom (src/main.rs:25-46 builds NCO -> filter; the
 driver's config-4 chain is NCO mix -> 64-tap decimating FIR -> AGC -> FM)
@@ -6,8 +6,8 @@ runs the oscillator at the FULL input rate: every sample pays a sin/cos
 (or LUT lookup) plus a complex multiply before the filter discards
 (M-1)/M of the results.
 
-On TPU the whole front end folds into the filter (the classic one-stage
-DDC identity).  With u32 phase words theta(k) = theta0 + k*dtheta
+The whole front end folds into the filter (the classic one-stage DDC
+identity).  With u32 phase words theta(k) = theta0 + k*dtheta
 (nco/mod.rs:93-96) and decimation M:
 
     y[t] = sum_i h[i] * x[s + tM + i] * e^{-j theta(s + tM + i)}
@@ -47,8 +47,7 @@ __all__ = ["ddc_taps", "ddc_apply_planar", "ddc_apply",
            "ddc_apply_planar_raw", "ddc_apply_planar_pieces",
            "ddc_fm_epilogue", "ddc_am_epilogue",
            "ddc_fm_epilogue_pieces", "ddc_am_epilogue_pieces",
-           "ddc_energy_pieces", "ddc_fm_fused",
-           "fm_first_sample", "ddc_pieces_last_rotated"]
+           "ddc_energy_pieces", "ddc_pieces_last_rotated"]
 
 
 def ddc_taps(taps: np.ndarray, dtheta: np.uint32) -> np.ndarray:
@@ -62,10 +61,9 @@ def ddc_taps(taps: np.ndarray, dtheta: np.uint32) -> np.ndarray:
 def _fold_banks(Hr: np.ndarray, Hi: np.ndarray, bank_dt) -> np.ndarray:
     """Fold the complex-tap plane algebra into one rhs (2, W, 2K).
 
-    Column layout is [re-block | im-block] (NOT per-output interleaving:
-    a stride-2 combine over millions of outputs lowers to a pathological
-    gather on the TPU backend — measured 23 ms of pure data movement).
-    With lhs planes (2, ..., W) contracted over (plane, W):
+    Column layout is [re-block | im-block] (NOT per-output interleaving,
+    which would make the complex combine a stride-2 slice over millions
+    of outputs).  With lhs planes (2, ..., W) contracted over (plane, W):
 
         out[..., :K] = xr@Hr - xi@Hi = Re(y),
         out[..., K:] = xr@Hi + xi@Hr = Im(y),
@@ -90,32 +88,14 @@ def _plane_dot(lhs: jnp.ndarray, bank: np.ndarray, rdtype, prec):
         lhs, H, (((0, nd - 1), (0, 1)), ((), ())), precision=prec)
 
 
-def _use_pallas(engine: str, precision, rdtype) -> bool:
-    """Engine resolution for the body kernel (ops/pallas_ddc.py).
-
-    "auto" engages the Pallas kernel on TPU backends for the two
-    precision modes it implements (x3-equivalent and single-pass bf16);
-    "pallas" forces it (interpret-mode off-TPU, so CPU tests drive the
-    identical kernel); f64 planes always stay on the XLA path."""
-    if rdtype == jnp.float64:
-        return False
-    if engine == "pallas":
-        return True
-    return (engine == "auto"
-            and jax.default_backend() not in ("cpu",)
-            and precision in ("x3", "default"))
-
-
 def ddc_apply_planar_pieces(taps, dtheta, tail2, theta0, x2, decimation: int,
-                            precision="highest", block: int | None = None,
-                            engine: str = "auto"):
+                            precision="highest", block: int | None = None):
     """UNROTATED fused-DDC body, returned in its NATIVE piece layouts.
 
-    The body computes the decimated outputs in up to four pieces (tail-
-    straddling head, Pallas tiled interior, XLA Toeplitz frames,
-    straggler) whose natural layouts differ; flattening them into one
-    (T,) array costs a full concatenate copy at the decimated rate.  This
-    entry point skips that: it returns
+    The body computes the decimated outputs in up to three pieces (tail-
+    straddling head, Toeplitz frames, straggler) whose natural layouts
+    differ; flattening them into one (T,) array costs a full concatenate
+    copy at the decimated rate.  This entry point skips that: it returns
 
         (pieces, new_tail2, theta_end, w0, dw)
 
@@ -149,56 +129,6 @@ def ddc_apply_planar_pieces(taps, dtheta, tail2, theta0, x2, decimation: int,
         return _fold_banks(_bank_rem_np(hr2, Tr, M),
                            _bank_rem_np(hi2, Tr, M), bank_dt)
 
-    # ---- full-coverage backward-halo Pallas path ------------------------
-    # When the geometry allows (taps reach back less than one frame and the
-    # block is frame-aligned), ONE kernel covers every output: the operand
-    # is the free reshape of the whole input argument (a sliced operand
-    # costs a full-rate XLA copy — measured 0.43 ms / 128 MB block), and
-    # the carried tail rides in as one tiny row, replacing the XLA head
-    # piece.  See ops/pallas_ddc.py::make_pallas_ddc_full.
-    if _use_pallas(engine, precision, rdtype):
-        from .pallas_ddc import (DEFAULT_P, DEFAULT_TF, HALO_FRAMES,
-                                 make_pallas_ddc_full,
-                                 pallas_full_supported)
-        Pp = DEFAULT_P
-        hop_p = Pp * M
-        D = n - M
-        if (pallas_full_supported(n, M, Pp) and L % hop_p == 0
-                and n1 >= first and L >= max(hop_p, n1)):
-            F_all = L // hop_p
-            TFp = DEFAULT_TF
-            for cand in (1024, 512, 256):
-                if F_all // cand >= 4:
-                    TFp = cand
-                    break
-            tiles = F_all // TFp
-            if tiles > 0:
-                mode = "x3" if precision != "default" else "fast"
-                body_fn = make_pallas_ddc_full(
-                    h_bp, M, tiles, TF=TFp, mode=mode)
-                xf = x2.reshape(2, F_all, hop_p)
-                tailrow = jnp.zeros((2, HALO_FRAMES, hop_p), rdtype)
-                tailrow = tailrow.at[:, HALO_FRAMES - 1, hop_p - D :].set(
-                    tail2[:, first:].astype(rdtype))
-                yp = body_fn(xf, tailrow)            # (tiles*TF, 2P)
-                pieces = [("cols", yp.astype(rdtype), Pp)]
-                t0 = tiles * TFp * Pp
-                Trem = T - t0
-                if Trem > 0:
-                    wr = (Trem - 1) * M + n
-                    zrem = x2[:, t0 * M - D : t0 * M - D + wr]
-                    yr = _plane_dot(zrem, rem_bank(Trem), rdtype, prec)
-                    pieces.append(("flat", yr[:Trem], yr[Trem:]))
-                d = int(np.uint32(dtheta))
-                w0 = (jnp.uint32(theta0)
-                      + jnp.uint32((first * d) & 0xFFFFFFFF)
-                      - jnp.uint32((n1 * d) & 0xFFFFFFFF))
-                dw = np.uint32((M * d) & 0xFFFFFFFF)
-                new_tail2 = x2[:, L - n1 :] if n1 > 0 else tail2[:, :0]
-                theta_end = (jnp.uint32(theta0)
-                             + jnp.uint32((L * d) & 0xFFFFFFFF))
-                return pieces, new_tail2, theta_end, w0, dw
-
     # ---- piece 1: head outputs that straddle the carried tail ----------
     Th = min(max(-(-(n1 - first) // M), 0), T)
     pieces = []
@@ -208,43 +138,9 @@ def ddc_apply_planar_pieces(taps, dtheta, tail2, theta0, x2, decimation: int,
         zhead = jnp.concatenate([tail2[:, first:], x2[:, :from_x]], axis=1)
         yh = _plane_dot(zhead, rem_bank(Th), rdtype, prec)   # (2*Th,)
         pieces.append(("flat", yh[:Th], yh[Th:]))
-    # ---- piece 2: body frames, aligned to x ----------------------------
-    shift0 = first + Th * M - n1        # in [0, M)
+    # ---- piece 2: banded-Toeplitz body frames, aligned to x -----------
+    start = first + Th * M - n1         # in [0, M)
     Tb = T - Th
-    start = shift0
-    # ---- piece 2a: Pallas tiled interior (ops/pallas_ddc.py) -----------
-    if _use_pallas(engine, precision, rdtype):
-        from .pallas_ddc import (DEFAULT_P, DEFAULT_TF, HALO_FRAMES,
-                                 make_pallas_ddc_body,
-                                 pallas_body_supported)
-        Pp = DEFAULT_P
-        hop_p = Pp * M
-        if pallas_body_supported(n, M, Pp) and Tb > 0:
-            fb_avail = max((L - start - n1) // hop_p, 0)
-            fb_avail = min(fb_avail, Tb // Pp)
-            # Tile size: bigger tiles pipeline HBM->VMEM better (measured
-            # x3 21.9 -> 26.4 Gs/s going 128 -> 1024 frames/tile,
-            # tools/proto_pallas_ddc2.py) — take the largest that still
-            # gives a few grid steps, falling back for short blocks.
-            TFp = DEFAULT_TF
-            for cand in (1024, 512, 256):
-                if (fb_avail - HALO_FRAMES) // cand >= 4:
-                    TFp = cand
-                    break
-            tiles = max((fb_avail - HALO_FRAMES) // TFp, 0)
-            if tiles > 0:
-                mode = "x3" if precision != "default" else "fast"
-                body_fn = make_pallas_ddc_body(
-                    ddc_taps(taps, np.uint32(dtheta)), M, tiles, TF=TFp,
-                    mode=mode)
-                span = (tiles * TFp + HALO_FRAMES) * hop_p
-                xf = x2[:, start : start + span].reshape(2, -1, hop_p)
-                yp = body_fn(xf)                     # (tiles*TF, 2P)
-                pieces.append(("cols", yp.astype(rdtype), Pp))
-                emitted = tiles * TFp * Pp
-                start += tiles * TFp * hop_p
-                Tb -= emitted
-    # ---- piece 2b: XLA banded-Toeplitz over what remains ----------------
     if block:
         P = max(min(int(block), max(Tb, 1)), max(-(-n1 // M), 1))
     else:
@@ -317,8 +213,7 @@ def _pieces_flatten(pieces):
 
 
 def ddc_apply_planar_raw(taps, dtheta, tail2, theta0, x2, decimation: int,
-                         precision="highest", block: int | None = None,
-                         engine: str = "auto"):
+                         precision="highest", block: int | None = None):
     """UNROTATED fused-DDC body on input planes, flattened.
 
     Same contract as :func:`ddc_apply_planar` but skips the decimated-rate
@@ -331,14 +226,14 @@ def ddc_apply_planar_raw(taps, dtheta, tail2, theta0, x2, decimation: int,
     """
     pieces, new_tail2, theta_end, w0, dw = ddc_apply_planar_pieces(
         taps, dtheta, tail2, theta0, x2, decimation,
-        precision=precision, block=block, engine=engine)
+        precision=precision, block=block)
     yre, yim = _pieces_flatten(pieces)
     return yre, yim, new_tail2, theta_end, w0, dw
 
 
 def ddc_apply_planar(taps, dtheta, tail2, theta0, x2, decimation: int,
                      precision="highest", block: int | None = None,
-                     rot_mode: str = "fast", engine: str = "auto"):
+                     rot_mode: str = "fast"):
     """One fused DDC block on input planes.
 
     Args:
@@ -352,9 +247,6 @@ def ddc_apply_planar(taps, dtheta, tail2, theta0, x2, decimation: int,
       decimation: M.
       precision / block: see ops.fir.fir_toeplitz.
       rot_mode: "fast" (factorized oscillator, ~1 ulp) | "exact" | "lut".
-      engine: "auto" | "xla" | "pallas" — whether the aligned interior
-        runs as the fused Mosaic kernel (ops/pallas_ddc.py; 3x the XLA
-        path on chip at x3/default precision) with edges on XLA.
 
     Returns (out_re, out_im, new_tail2, theta_end) where out has length
     L // M and equals mix_down_block + fir_decim_apply of the unfused
@@ -362,7 +254,7 @@ def ddc_apply_planar(taps, dtheta, tail2, theta0, x2, decimation: int,
     """
     yre, yim, new_tail2, theta_end, w0, dw = ddc_apply_planar_raw(
         taps, dtheta, tail2, theta0, x2, decimation,
-        precision=precision, block=block, engine=engine)
+        precision=precision, block=block)
     rdtype = x2.dtype
     T = yre.shape[-1]
     rot = nco_complex_exponential(w0, dw, T, mode=rot_mode)
@@ -384,20 +276,6 @@ def _rot_scalar(w, rdtype):
     ph_dt = jnp.float64 if rdtype == jnp.float64 else jnp.float32
     rad = w.astype(ph_dt) * np.dtype(ph_dt).type(_TWO_PI / float(_U32))
     return jnp.cos(rad).astype(rdtype), (-jnp.sin(rad)).astype(rdtype)
-
-
-def fm_first_sample(z0re, z0im, w0, prev_re, prev_im, kf):
-    """Exact first FM output of a block: z0 rotated by w0 vs the carried
-    previous CHAIN output (rotated, gained).  Shared by the single-chip
-    fused path and the time-sharded chain (where ``prev`` arrives from the
-    left-neighbor device instead of the carried state)."""
-    rdtype = z0re.dtype
-    scale = np.asarray(1.0 / (2.0 * np.pi * float(kf))).astype(rdtype)
-    c0, s0 = _rot_scalar(jnp.uint32(w0), rdtype)
-    y0re = z0re * c0 - z0im * s0
-    y0im = z0im * c0 + z0re * s0
-    return jnp.arctan2(y0im * prev_re - y0re * prev_im,
-                       y0re * prev_re + y0im * prev_im) * scale
 
 
 def ddc_pieces_last_rotated(pieces, w0, dw, gain):
@@ -515,7 +393,7 @@ def ddc_fm_epilogue_pieces(pieces, w0, dw, prev_re, prev_im, kf, gain):
     Same math as :func:`ddc_fm_epilogue` (rotation and real positive gain
     cancel in the phase differences; one constant e^{-j rad(dw)} rotation
     remains) but consumes the tagged pieces of
-    :func:`ddc_apply_planar_pieces`, so the big Pallas tile piece is
+    :func:`ddc_apply_planar_pieces`, so the big Toeplitz-frame piece is
     demodulated in its (F, 2P) layout — no decimated-rate flatten/concat
     of the complex signal ever materializes, only the (T,) f32 audio.
 
@@ -561,10 +439,10 @@ def ddc_fm_epilogue_pieces(pieces, w0, dw, prev_re, prev_im, kf, gain):
                 pim = jnp.concatenate([seam[1][None], im[:-1]])
                 audios.append(disc(re, im, pre, pim))
         else:
-            # cols piece: ONE fused elementwise pass (measured: the old
-            # concat-built neighbour arrays materialized several full
-            # decimated-rate copies; rolls + masked selects fuse with the
-            # cross products and atan2 into a single XLA kernel).
+            # cols piece: ONE fused elementwise pass.  Rolls + masked
+            # selects fuse with the cross products and atan2 into a
+            # single XLA kernel, where concat-built neighbour arrays
+            # would materialize decimated-rate copies.
             y2d, P = p[1], p[2]
             zre, zim = y2d[:, :P], y2d[:, P:]
             F = zre.shape[0]
@@ -601,132 +479,6 @@ def ddc_fm_epilogue_pieces(pieces, w0, dw, prev_re, prev_im, kf, gain):
     return out, new_prev_re, new_prev_im
 
 
-def ddc_fm_fused(taps, dtheta, tail2, theta0, x2, decimation: int,
-                 precision, kf, prev_re, prev_im, gain, engine: str = "auto",
-                 with_seams: bool = False):
-    """One-kernel DDC + FM demod (ops/pallas_ddc.py::make_pallas_ddc_fm).
-
-    The fully fused path: the Mosaic kernel computes the DDC body AND the
-    collapsed-epilogue FM discriminator in VMEM, emitting only the (T,) f32
-    audio plus a tiny per-tile stats row — the decimated-rate complex
-    signal never touches HBM.  Falls back by returning None when the
-    geometry or engine doesn't allow it (caller uses the pieces path).
-
-    Returns (out, new_prev_re, new_prev_im, ee_mean, new_tail2, theta_end)
-    where out matches the rotated rotate->AGC->fm_demodulate chain to
-    float rounding and ee_mean = mean |z|^2 for the AGC carry update.
-
-    with_seams=True appends (z0re, z0im, w0) — the raw first body output
-    and the block's rotation phase word — so a caller whose true ``prev``
-    is not yet known at call time (the time-sharded chain receives it from
-    the left-neighbor device) can pass a dummy prev and overwrite out[0]
-    via :func:`fm_first_sample` once the halo arrives.
-    """
-    taps = np.asarray(taps)
-    n = len(taps)
-    n1 = n - 1
-    M = int(decimation)
-    L = int(x2.shape[-1])
-    rdtype = x2.dtype
-    if L % M or rdtype == jnp.float64:
-        return None
-    # r4 engine history: the first in-VMEM discriminator ran its epilogue
-    # on (TF, P=64)-lane halves — every roll/where/product at half lane
-    # width plus a 64-lane audio output block, ~0.7 ms of VPU relayouts
-    # per 16M-sample block, briefly making the XLA pieces epilogue the
-    # better path.  The PACKED (TF, 2P) epilogue (see pallas_ddc.py
-    # finish()) removed that: measured chain x3 22.4 Gs/s vs 14.4 for the
-    # pieces path (whose rolls materialize full decimated-rate copies in
-    # HBM) — the fused kernel is the default again.
-    if not _use_pallas(engine, precision, rdtype):
-        return None
-    from .pallas_ddc import (DEFAULT_P, DEFAULT_TF, HALO_FRAMES,
-                             make_pallas_ddc_fm, pallas_fm_supported)
-    Pp = DEFAULT_P
-    hop_p = Pp * M
-    D = n - M
-    if not (pallas_fm_supported(n, M, Pp) and L % hop_p == 0
-            and n1 >= M - 1 and L >= max(hop_p, n1)):
-        return None
-    F_all = L // hop_p
-    TFp = DEFAULT_TF
-    for cand in (1024, 512, 256):
-        if F_all // cand >= 4:
-            TFp = cand
-            break
-    tiles = F_all // TFp
-    if tiles <= 0:
-        return None
-
-    T = L // M
-    first = M - 1
-    h_bp = ddc_taps(taps, np.uint32(dtheta))
-    d = int(np.uint32(dtheta))
-    dw = np.uint32((M * d) & 0xFFFFFFFF)
-    w0 = (jnp.uint32(theta0)
-          + jnp.uint32((first * d) & 0xFFFFFFFF)
-          - jnp.uint32((n1 * d) & 0xFFFFFFFF))
-    mode = "x3" if precision != "default" else "fast"
-    body_fn = make_pallas_ddc_fm(h_bp, M, tiles, dw, kf, TF=TFp, mode=mode)
-    xf = x2.reshape(2, F_all, hop_p)
-    tailrow = jnp.zeros((2, HALO_FRAMES, hop_p), rdtype)
-    tailrow = tailrow.at[:, HALO_FRAMES - 1, hop_p - D :].set(
-        tail2[:, first:].astype(rdtype))
-    audio2, stats8 = body_fn(xf, tailrow)  # (tiles*TF, 2P), (tiles*8, 128)
-    audio = audio2[:, :Pp]                 # packed-lane layout, see kernel
-    stats = stats8.reshape(tiles, 8, 128)[:, 0, :]   # row 0 carries data
-
-    scale = np.asarray(1.0 / (2.0 * np.pi * float(kf))).astype(rdtype)
-    drad = float(np.float64(np.uint32(dw)) * (_TWO_PI / float(_U32)))
-    cd = np.asarray(np.cos(drad)).astype(rdtype)
-    sd = np.asarray(-np.sin(drad)).astype(rdtype)   # e^{-j drad}
-
-    # exact output 0: the kernel's tile-0 seam window is one sample short
-    # (the carried tail is n-1 long); the carried fm_prev (rotated,
-    # gained previous chain output) gives the exact value instead.
-    z0re, z0im = stats[0, 3], stats[0, 4]
-    v0 = fm_first_sample(z0re, z0im, w0, prev_re, prev_im, kf)
-    out = audio.reshape(-1).at[0].set(v0)
-
-    energy = jnp.sum(stats[:, 0])
-    seam_re, seam_im = stats[-1, 1], stats[-1, 2]
-    t0 = tiles * TFp * Pp
-    Trem = T - t0
-    if Trem > 0:
-        bank_dt = np.float32
-        hr2 = h_bp.real.astype(bank_dt)[:, None]
-        hi2 = h_bp.imag.astype(bank_dt)[:, None]
-        wr = (Trem - 1) * M + n
-        zrem = x2[:, t0 * M - D : t0 * M - D + wr]
-        Hr = _fold_banks(_bank_rem_np(hr2, Trem, M),
-                         _bank_rem_np(hi2, Trem, M), bank_dt)
-        yr = _plane_dot(zrem, Hr, rdtype, _resolve_precision(precision))
-        rre, rim = yr[:Trem], yr[Trem:]
-        pre = jnp.concatenate([seam_re[None], rre[:-1]])
-        pim = jnp.concatenate([seam_im[None], rim[:-1]])
-        ure = rre * pre + rim * pim
-        uim = rim * pre - rre * pim
-        arem = jnp.arctan2(uim * cd + ure * sd,
-                           ure * cd - uim * sd) * scale
-        out = jnp.concatenate([out, arem])
-        energy = energy + jnp.sum(rre * rre + rim * rim)
-        seam_re, seam_im = rre[-1], rim[-1]
-    ee_mean = energy / T
-
-    wl = jnp.uint32(w0) + jnp.uint32((int(np.uint32(dw)) * (T - 1))
-                                     & 0xFFFFFFFF)
-    cl, sl = _rot_scalar(wl, rdtype)
-    g = jnp.asarray(gain).astype(rdtype)
-    new_prev_re = g * (seam_re * cl - seam_im * sl)
-    new_prev_im = g * (seam_im * cl + seam_re * sl)
-    new_tail2 = x2[:, L - n1 :] if n1 > 0 else tail2[:, :0]
-    theta_end = jnp.uint32(theta0) + jnp.uint32((L * d) & 0xFFFFFFFF)
-    if with_seams:
-        return (out, new_prev_re, new_prev_im, ee_mean, new_tail2,
-                theta_end, z0re, z0im, w0)
-    return out, new_prev_re, new_prev_im, ee_mean, new_tail2, theta_end
-
-
 def ddc_am_epilogue_pieces(pieces, gain):
     """AM envelope off the native piece layouts: g |z| per piece."""
     g = jnp.asarray(gain).astype(pieces[0][1].dtype)
@@ -744,7 +496,7 @@ def ddc_am_epilogue_pieces(pieces, gain):
 
 def ddc_apply(taps, dtheta, tail, theta0, x, decimation: int,
               precision="highest", block: int | None = None,
-              rot_mode: str = "fast", engine: str = "auto"):
+              rot_mode: str = "fast"):
     """Complex-in/complex-out wrapper around :func:`ddc_apply_planar`.
 
     ``tail`` is the carried complex raw-input tail (ntaps-1,) — the same
@@ -755,7 +507,7 @@ def ddc_apply(taps, dtheta, tail, theta0, x, decimation: int,
     x2 = jnp.stack([jnp.real(x), jnp.imag(x)])
     out_re, out_im, new_tail2, theta_end = ddc_apply_planar(
         taps, dtheta, tail2, theta0, x2,
-        decimation, precision, block, rot_mode, engine)
+        decimation, precision, block, rot_mode)
     y = jax.lax.complex(out_re, out_im).astype(x.dtype)
     new_tail = jax.lax.complex(new_tail2[0], new_tail2[1]).astype(x.dtype)
     return y, new_tail, theta_end

@@ -5,7 +5,7 @@ with FORWARD/REVERSE storage, execute (:153-171) which MACs over
 min(len(samples), len(coefs)) terms.
 
 The reference's execute is a scalar loop; here a single execute is one dot
-product and the *block* form (many sample windows at once) is an MXU matmul:
+product and the *block* form (many sample windows at once) is a matmul:
 ``windows (T, n) @ coefs (n,)``.  Everything downstream (FIR taps, IIR
 recurrence terms, generic DFT rows, filter-energy probes) funnels through
 these two entry points, exactly like the reference's layer map (SURVEY §1 L2).
@@ -31,7 +31,7 @@ def dot(coefs: jnp.ndarray, samples: jnp.ndarray):
 
 
 def dot_block(coefs: jnp.ndarray, windows: jnp.ndarray):
-    """Batched MAC: windows (..., T, n) x coefs (n,) -> (..., T) on the MXU."""
+    """Batched MAC: windows (..., T, n) x coefs (n,) -> (..., T) as matmuls."""
     n = coefs.shape[-1]
     return jnp.matmul(windows[..., :n], coefs, precision="highest")
 

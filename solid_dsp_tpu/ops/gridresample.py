@@ -1,9 +1,8 @@
 """Jittable arbitrary-ratio resampling grid: exact fixed-point positions.
 
-The round-4 resamplers (ops/farrow.py, ops/resample.py) computed output
-positions on the HOST in f64 per block — correct, but it made
-``execute_block`` un-jittable (the 1-3 Ms/s rows in BENCH_ALL_r04) and
-host-coupled.  This module makes the position stream a pure device
+The host-anchored resamplers (ops/farrow.py, ops/resample.py) compute
+output positions on the HOST in f64 per block — correct, but it makes
+``execute_block`` un-jittable and host-coupled.  This module makes the position stream a pure device
 computation in int32 with ZERO drift:
 
 * the ratio is quantized once at build time to ``R / 2**FB`` (FB = 20:

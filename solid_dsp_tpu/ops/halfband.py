@@ -7,7 +7,7 @@ zero (except the 0.5 center), so a decimate-by-2 stage costs half the
 taps — and a decimate-by-2^k cascade runs each successive stage at half
 the rate with a *wider* transition band (fewer taps) in the early stages.
 
-TPU mapping: each stage is one strided MXU conv on the even input phase
+Formulation: each stage is one strided conv on the even input phase
 plus a strided slice for the center tap (the odd phase) — the zero taps
 are never multiplied, unlike naively feeding the full halfband response
 to a stride-2 conv.
@@ -61,12 +61,10 @@ def halfband_decimate(taps, tail, x):
     center are exactly zero, so the dense form equals the phase-split
     identity in the module docstring bit-for-bit up to summation order).
 
-    ONE stride-2 banded-Toeplitz conv (:func:`conv1d_mxu`): the earlier
-    even/odd phase-split version extracted ``x_ext[0::2]`` — a stride-2
-    gather that is pathological on the TPU backend (23 ms per 4M-sample
-    axis, PERF_NOTES.md) and capped this stage at ~60 Ms/s; the dense
-    strided matmul spends 2x the MACs (free on the MXU) to keep HBM
-    traffic at O(L) with zero gathers.  len(x) must be even.
+    ONE stride-2 banded-Toeplitz conv (:func:`conv1d_mxu`) instead of an
+    even/odd phase split, which would extract ``x_ext[0::2]`` with a
+    stride-2 gather; the dense strided matmul spends 2x the MACs to keep
+    memory traffic at O(L) with zero gathers.  len(x) must be even.
     Returns (y, new_tail).
     """
     n = taps.shape[-1]

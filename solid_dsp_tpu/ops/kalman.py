@@ -1,4 +1,4 @@
-"""Kalman filtering and steady-state trackers, TPU-first.
+"""Kalman filtering and steady-state trackers, accelerator-first.
 
 The reference library has no state estimation at all; SDR chains need it
 for carrier/timing drift tracking, Doppler smoothing, and burst parameter
@@ -13,7 +13,7 @@ estimation.  Three formulations, trading generality for parallelism:
   ``lax.associative_scan`` over affine maps (O(log T) depth): the same
   trick the IIR engine uses (ops/iir.py), generalized to an n-state
   tracker.  For the n ≤ 4 states of practical trackers the (n, n) matmul
-  composition is tiny VPU work and the throughput is block-parallel.
+  composition is tiny elementwise work and the throughput is block-parallel.
 * ``alpha_beta_gains`` / ``AlphaBetaTracker`` — the classic constant-
   velocity tracker: the closed-form steady-state Kalman filter for a
   white-acceleration target, parameterized by the Kalata tracking index.
@@ -186,17 +186,16 @@ def kalman_lti_apply(x0, Z, K, F, method: str = "parallel"):
 
 def make_kalman_lti(K, F, chunk: int = 256):
     """Build a jitted steady-state tracker ``apply(x0, Z) -> (X, x_T)``
-    with the recurrence evaluated on the MXU via modal decomposition.
+    with the recurrence evaluated as matmuls via modal decomposition.
 
     ``K`` (n, m) and ``F`` (n, n) must be CONCRETE host arrays (design
     time, like steady_state_gain).  F = V diag(lam) V^-1 turns
     x_k = F x_{k-1} + K z_k into n independent SCALAR recurrences on the
     modal inputs u = V^-1 K z, each evaluated by
     :func:`linrec.chunked_first_order` (chunk matmul + log-depth carry
-    scan) — measured ~150x the per-element (n, n) associative-scan path
-    of ``kalman_lti_apply(method="parallel")`` on TPU, where tiny-matrix
-    scans are layout-hostile.  Falls back to that path when F is
-    defective (non-diagonalizable).
+    scan) in place of the per-element (n, n) associative-scan path of
+    ``kalman_lti_apply(method="parallel")``.  Falls back to that path
+    when F is defective (non-diagonalizable).
     """
     K = np.atleast_2d(np.asarray(K, np.float64))
     if K.shape[0] == 1 and K.shape[1] > 1:
@@ -224,8 +223,7 @@ def make_kalman_lti(K, F, chunk: int = 256):
     def apply(x0, Z):
         Z2 = Z[:, None] if Z.ndim == 1 else Z     # (T, m) real measurements
         rdt = Z2.dtype
-        # all small matmuls in REAL planes: complex dots lower to
-        # single-pass bf16 on TPU even at HIGHEST precision (see
+        # all small matmuls in REAL planes, at HIGHEST precision (see
         # linrec.chunked_first_order)
         Ur = (Z2 @ jnp.asarray(np.real(G).T).astype(rdt)).T    # (n, T)
         u0r = jnp.asarray(np.real(G0)).astype(rdt) @ x0

@@ -35,7 +35,7 @@ def affine_scan(As, vs, precision=None):
 
 def chunked_first_order(lams: np.ndarray, u, chunk: int = 256):
     """SCALAR LTI recurrences  s[m, t] = lam[m] s[m, t-1] + u[m, t]
-    (s[m, -1] = 0) evaluated as MXU matmuls instead of a scan.
+    (s[m, -1] = 0) evaluated as matmuls instead of a scan.
 
     ``lams``: CONCRETE host-side (m,) decay factors (real or complex) —
     they parameterize compile-time-constant chunk matrices.  ``u``:
@@ -47,10 +47,9 @@ def chunked_first_order(lams: np.ndarray, u, chunk: int = 256):
     LT[m, i', i] = lam[m]^(i - i'); across the T/chunk chunk boundaries
     the carries obey a tiny first-order recurrence with constant factor
     lam^chunk, evaluated by a log-depth ``associative_scan`` over
-    scalars.  Everything lands on the MXU / a few elementwise passes —
-    measured ~150x the (T, n, n)-matrix ``associative_scan`` it replaces
-    for the 2-state steady-state Kalman tracker (whose per-element tiny
-    matmuls are layout-hostile on TPU).
+    scalars.  Everything lands as matmuls / a few elementwise passes, in
+    place of a (T, n, n)-matrix ``associative_scan`` of tiny per-element
+    matmuls (the 2-state steady-state Kalman tracker).
     """
     lams = np.atleast_1d(np.asarray(lams))
     m = lams.shape[0]
@@ -79,9 +78,8 @@ def chunked_first_order(lams: np.ndarray, u, chunk: int = 256):
                           jnp.asarray(M_np.astype(rdt)), precision=hi)
 
     if jnp.issubdtype(cdt, jnp.complexfloating):
-        # complex matmuls lower to single-pass bf16 on TPU even at
-        # HIGHEST (measured ~2.5e-3 rel err); real-plane f32 dots keep
-        # the multi-pass HIGHEST contraction (~1e-7)
+        # real-plane float32 dots at HIGHEST: full float32 products on
+        # every backend, whatever its complex-dot lowering
         ur, ui = jnp.real(uc), jnp.imag(uc)
         LTr, LTi = LT.real, LT.imag
         s_re = _mm(ur, LTr) - _mm(ui, LTi)

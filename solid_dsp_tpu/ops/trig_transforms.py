@@ -6,11 +6,11 @@ implements them — the planner only handles complex DFTs.  This module
 completes that intended API surface with FFTW's unnormalized conventions
 (so a future FFTW cross-check is 1:1).
 
-TPU-first implementation choices:
+accelerator-first implementation choices:
 
 * DCT-I / DCT-II / DST-I have textbook O(N log N) embeddings into a real
   FFT — used as the fast path (XLA FFT).
-* The remaining kinds run as a single MXU matmul against a cached cosine /
+* The remaining kinds run as a single matmul against a cached cosine /
   sine matrix — for the N ≤ 8k frame sizes of spectral analysis this is
   exactly what the systolic array is for, and it is batched over frames.
 * MDCT/IMDCT (lapped, 2N -> N) fold to a DCT-IV; with the sine window they

@@ -1,7 +1,7 @@
 """Discrete wavelet transforms: Mallat analysis/synthesis cascades.
 
 Not in the reference (no multiresolution anything); standard DSP kit for
-denoising, transient detection, and compression front ends.  TPU mapping:
+denoising, transient detection, and compression front ends.  Accelerator mapping:
 each level is one strided conv pair (the same ``conv1d_mxu`` machinery as
 every FIR here) — no gathers, no sequential loops beyond the O(log N)
 level cascade.
@@ -53,15 +53,14 @@ def _periodic_conv_down(x, taps_np):
     """Periodic (circular) convolution then downsample by 2.
 
     y[m] = sum_k taps[k] x[(2m + 1 - k) mod N] — the standard (pywt-
-    convention) DWT analysis step with periodic extension.  TPU
-    formulation: ONE stride-2 banded-Toeplitz conv on the wrap-extended
-    signal (the earlier version did L rolls then a ``[1::2]`` stride-2
-    gather — pathological on this backend, PERF_NOTES.md).  With
+    convention) DWT analysis step with periodic extension, as ONE
+    stride-2 banded-Toeplitz conv on the wrap-extended signal (not L
+    rolls then a ``[1::2]`` stride-2 gather).  With
     o = len(taps) - 2 wrap samples prepended, w[j] = x[(j - o) mod N],
 
         y[m] = sum_i taps_r[i] w[2m + i],   taps_r = taps[::-1],
 
-    (substituting i = Lt-1-k) — the strided MXU sliding correlation.
+    (substituting i = Lt-1-k) — the strided matmul sliding correlation.
     ``taps_np`` stays host-side numpy so the conv banks are
     compile-time constants.
     """
@@ -82,7 +81,7 @@ def _upsample_periodic_conv(c, taps_np):
         y[2s]   = sum_j taps[2j]   c[(s - j) mod N]
         y[2s+1] = sum_j taps[2j+1] c[(s - j) mod N]
 
-    — two circular convs on the wrap-extended ``c`` (each a small MXU
+    — two circular convs on the wrap-extended ``c`` (each a small matmul
     conv), interleaved with one stack+reshape.
     """
     tn = np.asarray(taps_np)
@@ -149,8 +148,8 @@ def denoise_soft(x, wavelet: str = "db4", levels: int = 3,
     MAD uses at most ``sigma_samples`` detail coefficients (a contiguous
     slice — the noise is iid, so a 64K-sample median estimates sigma to
     well under 1%): a full-length ``jnp.median`` lowers to a full sort,
-    which dominated this function's runtime for multi-million-sample
-    blocks on TPU.  Pass ``sigma_samples=None`` for the exact
+    which would dominate this function's runtime for multi-million-
+    sample blocks.  Pass ``sigma_samples=None`` for the exact
     full-length MAD.
     """
     coeffs = wavedec(x, wavelet, levels)

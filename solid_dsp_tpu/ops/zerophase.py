@@ -6,8 +6,8 @@ zero-phase variant instead: run the filter forward, reverse, run again,
 reverse.  The magnitude response applies twice (|H|^2) and the phase
 cancels exactly.
 
-TPU formulation: both passes are the existing block-functional filter
-cores (conv-as-MXU for FIR, scan/associative-scan w-recurrence for IIR)
+Formulation: both passes are the existing block-functional filter
+cores (conv-as-matmul for FIR, scan/associative-scan w-recurrence for IIR)
 inside one jit; the reversals are free layout changes to XLA.  Edge
 transients are suppressed scipy-style with odd-reflection padding
 (2*(ntaps or 3*nsections) samples at each end, mirrored around the end

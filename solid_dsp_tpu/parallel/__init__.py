@@ -3,7 +3,7 @@
 The reference (juliantos/solid-dsp) is entirely single-threaded
 sample-at-a-time Rust (SURVEY.md §2 "Parallelism" — no threads, no SIMD, no
 collectives anywhere under src/).  This package supplies the scale-out story
-the TPU build needs instead:
+across accelerator cards instead:
 
 * ``mesh``     — device meshes with ``('channel', 'time')`` axes: channels are
   the data-parallel axis (independent streams), time is the sequence-parallel
@@ -15,7 +15,6 @@ the TPU build needs instead:
 """
 
 from .mesh import make_mesh, mesh_axes  # noqa: F401
-from . import pallas_halo  # noqa: F401
 from .halo import (  # noqa: F401
     left_halo,
     right_halo,

@@ -7,11 +7,12 @@ Axis conventions (SURVEY.md §2 "Parallelism & distributed-communication"):
     communication crosses this axis except optional spectral reductions.
 ``time``
     Overlap-save time blocks of one stream — the SP/CP analog.  Neighbor
-    devices exchange ``ntaps - 1`` halos over ICI via ``lax.ppermute``.
+    devices exchange ``ntaps - 1`` halos via ``lax.ppermute``.
 
-On real hardware lay ``time`` along an ICI-adjacent axis so halos ride
-nearest-neighbor links; ``channel`` can span hosts (DCN) because it never
-communicates per-block.
+The mesh shape follows the algorithm, not the interconnect: the cards of
+one host reach each other all to all, so any ``(channel, time)`` split of
+them has the same link cost.  ``channel`` can span hosts because it never
+communicates per-block; ``time`` exchanges halos every block.
 """
 
 from __future__ import annotations

@@ -53,7 +53,7 @@ def sharded_fir(taps, mesh: Mesh, scale=1.0):
 
     ``x``: (C, L) — channels over the ``channel`` axis, time over ``time``.
     ``tail``: (C, ntaps-1) carried across calls (global stream history).
-    Inside each block the halo comes from the left neighbor over ICI; only
+    Inside each block the halo comes from the left neighbor; only
     the leftmost time shard consumes the carried tail.
     """
     taps = np.asarray(taps)
@@ -97,8 +97,8 @@ def make_sharded_rx_chain(cfg: RxChainConfig, mesh: Mesh):
 
     ONE engine, two deployments: when the fused DDC applies (same rule as
     models/rx_chain.py — nco_mode "exact"), the per-shard front end IS the
-    round-3 engine (ops/ddc.py pieces path / ops/pallas_ddc.py fused FM
-    kernel); the only sharded additions are the raw-input left halo
+    single-chip engine (ops/ddc.py pieces path); the only sharded
+    additions are the raw-input left halo
     (replacing the carried tail on shards > 0), one ppermute of the
     1-sample discriminator seam, and the pmean of the AGC block energy.
     The LUT-NCO parity mode keeps the unfused mix->fir staging, exactly
@@ -141,25 +141,18 @@ def make_sharded_rx_chain(cfg: RxChainConfig, mesh: Mesh):
             fm_prev=fm_mod.fm_demod_init(cfg.dtype, batch_shape=bs),
         )
 
-    # ---------------- fused per-stream front end (the round-3 engine) ----
-    def _front(tail2_c, theta0_l, x2_c, gain_c):
-        """One stream's DDC front end; prev seam deferred to the caller."""
-        if cfg.demod == "fm":
-            res = ddc_ops.ddc_fm_fused(
-                taps_design, dtheta, tail2_c, theta0_l, x2_c, M,
-                cfg.fir_precision, cfg.fm_kf,
-                jnp.asarray(1.0, rdtype), jnp.asarray(0.0, rdtype),
-                gain_c, engine=cfg.ddc_engine, with_seams=True)
-            if res is not None:
-                return "kernel", res
-        return "pieces", ddc_ops.ddc_apply_planar_pieces(
+    # ---------------- fused per-stream front end ---------------------------
+    def _front(tail2_c, theta0_l, x2_c):
+        """One stream's DDC body pieces; prev seam deferred to the caller."""
+        return ddc_ops.ddc_apply_planar_pieces(
             taps_design, dtheta, tail2_c, theta0_l, x2_c, M,
-            precision=cfg.fir_precision, engine=cfg.ddc_engine)
+            precision=cfg.fir_precision)
 
     def _planes(xc):
         return jnp.stack([jnp.real(xc), jnp.imag(xc)]).astype(rdtype)
 
-    def local_fused(state: ChainState, x):
+    def local_fused_planar(state: ChainState, x):
+        """One wideband stream as (2, L) planes, time-sharded."""
         L_local = x.shape[-1]
         if L_local % M:
             raise ValueError(
@@ -172,108 +165,49 @@ def make_sharded_rx_chain(cfg: RxChainConfig, mesh: Mesh):
         theta_end = (state.nco_theta
                      + jnp.uint32(n_time * L_local) * dtheta
                      ).astype(jnp.uint32)
-
-        if planar:
-            x2s = [x.astype(rdtype)]                       # [(2, L_loc)]
-            halo2 = left_halo(x[:, -n1:], "time").astype(rdtype)
-            tails = [jnp.where(t_idx == 0, _planes(state.fir_tail), halo2)]
-            gains = [state.agc["gain"]]
-            prev_state = [state.fm_prev]
-        else:
-            C_loc = x.shape[0]
-            halo = left_halo(x[..., -n1:], "time")         # raw complex
-            x2s = [_planes(x[c]) for c in range(C_loc)]
-            tails = [jnp.where(t_idx == 0, _planes(state.fir_tail[c]),
-                               _planes(halo[c])) for c in range(C_loc)]
-            gains = [state.agc["gain"][c] for c in range(C_loc)]
-            prev_state = [state.fm_prev[c] for c in range(C_loc)]
-
-        fronts = [_front(tails[c], theta0_l, x2s[c], gains[c])
-                  for c in range(len(x2s))]
+        halo2 = left_halo(x[:, -n1:], "time").astype(rdtype)
+        tail2 = jnp.where(t_idx == 0, _planes(state.fir_tail), halo2)
+        gain = state.agc["gain"]
+        pieces, _t2, _te, w0, dw = _front(tail2, theta0_l, x.astype(rdtype))
 
         if cfg.demod in ("fm", "am"):
             # collapsed decimated-rate epilogue; FM chains through a
-            # 1-sample rotated+gained seam shipped right over ICI
-            ee_cs, outs, seam_cs = [], [], []
-            for c, (kind, payload) in enumerate(fronts):
-                if kind == "kernel":
-                    (out_c, npr, npi, ee_c, _t2, _te,
-                     z0re, z0im, w0) = payload
-                    seam_cs.append((npr, npi))
-                    ee_cs.append(ee_c)
-                    outs.append((kind, out_c, (z0re, z0im, w0)))
-                else:
-                    pieces, _t2, _te, w0, dw = payload
-                    ee_cs.append(ddc_ops.ddc_energy_pieces(pieces))
-                    if cfg.demod == "fm":
-                        seam_cs.append(ddc_ops.ddc_pieces_last_rotated(
-                            pieces, w0, dw, gains[c]))
-                        outs.append((kind, pieces, (w0, dw)))
-                    else:
-                        outs.append(
-                            (kind,
-                             ddc_ops.ddc_am_epilogue_pieces(pieces,
-                                                            gains[c]),
-                             None))
+            # 1-sample rotated+gained seam shipped to the right neighbour
+            ee = jax.lax.pmean(ddc_ops.ddc_energy_pieces(pieces), "time")
             if cfg.demod == "fm":
-                seams = jnp.stack([jnp.stack([r, i]) for r, i in seam_cs])
-                prev_in = left_halo(seams, "time")          # (C, 2)
-                final = []
-                for c, (kind, body, aux) in enumerate(outs):
-                    pr = jnp.where(t_idx == 0,
-                                   jnp.real(prev_state[c]).astype(rdtype),
-                                   prev_in[c, 0])
-                    pi = jnp.where(t_idx == 0,
-                                   jnp.imag(prev_state[c]).astype(rdtype),
-                                   prev_in[c, 1])
-                    if kind == "kernel":
-                        z0re, z0im, w0 = aux
-                        v0 = ddc_ops.fm_first_sample(
-                            z0re, z0im, w0, pr, pi, cfg.fm_kf)
-                        final.append(body.at[0].set(v0))
-                    else:
-                        w0, dw = aux
-                        out_c, _, _ = ddc_ops.ddc_fm_epilogue_pieces(
-                            body, w0, dw, pr, pi, cfg.fm_kf, gains[c])
-                        final.append(out_c)
+                seam = jnp.stack(ddc_ops.ddc_pieces_last_rotated(
+                    pieces, w0, dw, gain))
+                prev_in = left_halo(seam, "time")           # (2,)
+                pr = jnp.where(t_idx == 0,
+                               jnp.real(state.fm_prev).astype(rdtype),
+                               prev_in[0])
+                pi = jnp.where(t_idx == 0,
+                               jnp.imag(state.fm_prev).astype(rdtype),
+                               prev_in[1])
+                out, _, _ = ddc_ops.ddc_fm_epilogue_pieces(
+                    pieces, w0, dw, pr, pi, cfg.fm_kf, gain)
                 new_fm_prev = from_last_shard(
-                    jax.lax.complex(seams[:, 0], seams[:, 1]
-                                    ).astype(cfg.dtype), "time")
-                if planar:
-                    new_fm_prev = new_fm_prev[0]
+                    jax.lax.complex(seam[0], seam[1]).astype(cfg.dtype),
+                    "time")
             else:  # am: memoryless epilogue, fm_prev carried through
-                final = [body for _, body, _ in outs]
+                out = ddc_ops.ddc_am_epilogue_pieces(pieces, gain)
                 new_fm_prev = state.fm_prev
-            out = final[0] if planar else jnp.stack(final)
-            ee = jax.lax.pmean(jnp.stack(ee_cs), "time")
-            if planar:
-                ee = ee[0]
-            gain = state.agc["gain"]
             agc_state = agc_ops.block_gain_update(
                 state.agc, (gain * gain) * ee, cfg.agc_bandwidth,
                 T_loc * n_time)
         else:
             # qpsk / none: rotated output materialized, then the shared
             # sharded AGC + demod staging
-            ys = []
-            for c, (kind, payload) in enumerate(fronts):
-                pieces, _t2, _te, w0, dw = payload
-                yre, yim = ddc_ops._pieces_flatten(pieces)
-                rot = nco_ops.nco_complex_exponential(w0, dw, T_loc,
-                                                      mode="fast")
-                cr = jnp.real(rot).astype(rdtype)
-                sr = jnp.imag(rot).astype(rdtype)
-                ys.append(jax.lax.complex(
-                    yre * cr + yim * sr,
-                    yim * cr - yre * sr).astype(cfg.dtype))
-            y = ys[0][None] if planar else jnp.stack(ys)
-            st_agc = state.agc
-            if planar:
-                st_agc = {k: v[None] for k, v in st_agc.items()}
-            y, agc_state = _agc_block_sharded(st_agc, y, cfg.agc_bandwidth,
-                                              "time")
-            if planar:
-                agc_state = {k: v[0] for k, v in agc_state.items()}
+            yre, yim = ddc_ops._pieces_flatten(pieces)
+            rot = nco_ops.nco_complex_exponential(w0, dw, T_loc, mode="fast")
+            cr = jnp.real(rot).astype(rdtype)
+            sr = jnp.imag(rot).astype(rdtype)
+            y = jax.lax.complex(yre * cr + yim * sr,
+                                yim * cr - yre * sr).astype(cfg.dtype)
+            st_agc = {k: v[None] for k, v in state.agc.items()}
+            y, agc_state = _agc_block_sharded(st_agc, y[None],
+                                              cfg.agc_bandwidth, "time")
+            agc_state = {k: v[0] for k, v in agc_state.items()}
             if cfg.demod == "qpsk":
                 y_full = jax.lax.all_gather(y, "time", axis=y.ndim - 1,
                                             tiled=True)
@@ -283,25 +217,19 @@ def make_sharded_rx_chain(cfg: RxChainConfig, mesh: Mesh):
                     out_full, t_idx * lo, lo, axis=out_full.ndim - 1)
             else:
                 out = y
+            out = out[0]
             # qpsk/none don't consume fm_prev — carry it through unchanged
             # so checkpointed ChainState stays bit-identical to the
             # single-chip chain (which only updates fm_prev for fm/am)
             new_fm_prev = state.fm_prev
-            if planar:
-                out = out[0]
 
         # fused chains carry the RAW input tail (pre-mix), like the
         # single-chip fused chain
-        if planar:
-            tail_pl = from_last_shard(x[:, -n1:], "time").astype(rdtype)
-            new_fir_tail = jax.lax.complex(tail_pl[0],
-                                           tail_pl[1]).astype(cfg.dtype)
-        else:
-            new_fir_tail = from_last_shard(x[..., -n1:], "time")
-
+        tail_pl = from_last_shard(x[:, -n1:], "time").astype(rdtype)
         new_state = ChainState(
             nco_theta=theta_end,
-            fir_tail=new_fir_tail,
+            fir_tail=jax.lax.complex(tail_pl[0],
+                                     tail_pl[1]).astype(cfg.dtype),
             fir_phase=state.fir_phase,
             agc=agc_state,
             fm_prev=new_fm_prev,
@@ -309,13 +237,11 @@ def make_sharded_rx_chain(cfg: RxChainConfig, mesh: Mesh):
         return out, new_state
 
     # ---------------- batched multi-channel fused front end ---------------
-    # The round-4 code unrolled a Python loop over channels (a compile-
-    # time bomb at the 256-stream DP scale); here ONE jax.vmap over the
-    # channel axis traces the per-channel engine once.  The vmapped fn
-    # returns arrays only (pieces are flattened inside the vmap, the
-    # static piece/kernel branch is resolved via eval_shape), and the
-    # epilogues run batched outside.  Bit-parity with the loop form is
-    # pinned by tests/test_parallel.py.
+    # ONE jax.vmap over the channel axis traces the per-channel engine
+    # once (a Python loop over channels would trace it C times).  The
+    # vmapped fn returns arrays only (pieces are flattened inside the
+    # vmap), and the epilogues run batched outside.  Bit-parity with the
+    # loop form is pinned by tests/test_parallel.py.
     dw_s = np.uint32((M * int(np.uint32(dtheta))) & 0xFFFFFFFF)
 
     def local_fused_multi(state: ChainState, x):
@@ -331,7 +257,6 @@ def make_sharded_rx_chain(cfg: RxChainConfig, mesh: Mesh):
         theta_end = (state.nco_theta
                      + jnp.uint32(n_time * L_local) * dtheta
                      ).astype(jnp.uint32)
-        C_loc = x.shape[0]
         halo = left_halo(x[..., -n1:], "time")
         x2b = jnp.stack([jnp.real(x), jnp.imag(x)], axis=1).astype(rdtype)
         tail_b = jnp.stack([jnp.real(state.fir_tail),
@@ -340,48 +265,10 @@ def make_sharded_rx_chain(cfg: RxChainConfig, mesh: Mesh):
                            axis=1).astype(rdtype)
         tails_b = jnp.where(t_idx == 0, tail_b, halo_b)
         gains_b = state.agc["gain"]
-        def _front_flag(t2, th, x2, g):
-            k, _ = _front(t2, th, x2, g)
-            return jnp.zeros((1,) if k == "kernel" else (2,))
 
-        kind = ("kernel" if jax.eval_shape(
-            _front_flag,
-            jax.ShapeDtypeStruct(tails_b.shape[1:], rdtype),
-            jax.ShapeDtypeStruct((), jnp.uint32),
-            jax.ShapeDtypeStruct(x2b.shape[1:], rdtype),
-            jax.ShapeDtypeStruct(gains_b.shape[1:], gains_b.dtype)
-            ).shape == (1,) else "pieces")
-
-        if cfg.demod in ("fm", "am") and kind == "kernel":
-            def chan_k(t2, x2, g):
-                _, p = _front(t2, theta0_l, x2, g)
-                out_c, npr, npi, ee_c, _t2, _te, z0re, z0im, w0 = p
-                return out_c, jnp.stack([npr, npi]), ee_c, z0re, z0im, w0
-
-            outs, seams, ees, z0re_b, z0im_b, w0_b = jax.vmap(chan_k)(
-                tails_b, x2b, gains_b)
-            prev_in = left_halo(seams, "time")
-            pr = jnp.where(t_idx == 0,
-                           jnp.real(state.fm_prev).astype(rdtype),
-                           prev_in[:, 0])
-            pi = jnp.where(t_idx == 0,
-                           jnp.imag(state.fm_prev).astype(rdtype),
-                           prev_in[:, 1])
-            v0 = ddc_ops.fm_first_sample(z0re_b, z0im_b, w0_b, pr, pi,
-                                         cfg.fm_kf)
-            out = outs.at[:, 0].set(v0)
-            new_fm_prev = from_last_shard(
-                jax.lax.complex(seams[:, 0], seams[:, 1]).astype(cfg.dtype),
-                "time")
-            ee = jax.lax.pmean(ees, "time")
-            gain = state.agc["gain"]
-            agc_state = agc_ops.block_gain_update(
-                state.agc, (gain * gain) * ee, cfg.agc_bandwidth,
-                T_loc * n_time)
-        elif cfg.demod in ("fm", "am"):
+        if cfg.demod in ("fm", "am"):
             def chan_p(t2, x2, g):
-                _, p = _front(t2, theta0_l, x2, g)
-                pieces, _t2, _te, w0, _dw = p
+                pieces, _t2, _te, w0, _dw = _front(t2, theta0_l, x2)
                 yre, yim = ddc_ops._pieces_flatten(pieces)
                 ee_c = ddc_ops.ddc_energy_pieces(pieces)
                 if cfg.demod == "fm":
@@ -422,13 +309,12 @@ def make_sharded_rx_chain(cfg: RxChainConfig, mesh: Mesh):
         else:
             # qpsk / none: rotated output materialized, then the shared
             # sharded AGC + demod staging (same rotation for all channels)
-            def chan_r(t2, x2, g):
-                _, p = _front(t2, theta0_l, x2, g)
-                pieces, _t2, _te, w0, _dw = p
+            def chan_r(t2, x2):
+                pieces, _t2, _te, w0, _dw = _front(t2, theta0_l, x2)
                 yre, yim = ddc_ops._pieces_flatten(pieces)
                 return yre, yim, w0
 
-            yre_b, yim_b, w0_b = jax.vmap(chan_r)(tails_b, x2b, gains_b)
+            yre_b, yim_b, w0_b = jax.vmap(chan_r)(tails_b, x2b)
             rot = nco_ops.nco_complex_exponential(w0_b[0], dw_s, T_loc,
                                                   mode="fast")
             cr = jnp.real(rot).astype(rdtype)
@@ -495,7 +381,7 @@ def make_sharded_rx_chain(cfg: RxChainConfig, mesh: Mesh):
         #    line), so the time shards all_gather the decimated stream, run
         #    the same estimator as the single-chip chain, and keep their own
         #    slice — semantics identical to qpsk_carrier_block on the full
-        #    block, cost one (L/M)-sample all-gather over ICI.
+        #    block, cost one (L/M)-sample all-gather.
         if cfg.demod == "fm":
             prev_halo = left_halo(y[..., -1], "time")
             fm_prev_l = jnp.where(t_idx == 0, state.fm_prev, prev_halo)
@@ -525,7 +411,7 @@ def make_sharded_rx_chain(cfg: RxChainConfig, mesh: Mesh):
         )
         return out, new_state
 
-    local_fn = ((local_fused if planar else local_fused_multi)
+    local_fn = ((local_fused_planar if planar else local_fused_multi)
                 if fused else local_unfused)
     chanspec = P() if planar else P("channel")
     state_spec = ChainState(
@@ -544,9 +430,6 @@ def make_sharded_rx_chain(cfg: RxChainConfig, mesh: Mesh):
         mesh=mesh,
         in_specs=(state_spec, in_spec),
         out_specs=(out_spec, state_spec),
-        # pallas_call out_shapes carry no vma annotation; the fused kernel
-        # path needs the varying-across-mesh checker off (as pallas_halo)
-        check_vma=False,
     )
     return init, jax.jit(mapped)
 
@@ -573,12 +456,10 @@ def _agc_block_sharded(state, x, alpha, axis_name):
 def make_sharded_channelizer(num_channels: int, taps_per_branch: int = 8,
                              mesh: Mesh | None = None,
                              attenuation: float = 80.0,
-                             dtype=jnp.complex64,
-                             frontend: str = "xla",
-                             precision: str = "x3"):
+                             dtype=jnp.complex64):
     """256-channel-class polyphase channelizer over a 2D mesh.
 
-    2D decomposition (``frontend="xla"``, the default):
+    2D decomposition:
 
     * ``time``    — the input stream is split into overlap-save blocks;
       each shard receives a ``K*M - 1`` raw-sample halo from its left
@@ -587,32 +468,18 @@ def make_sharded_channelizer(num_channels: int, taps_per_branch: int = 8,
       prototype polyphase matrix are split across the axis and the partial
       branch products combined with one ``psum``; then each shard extracts
       its own M / n_channel_shards output channels with a partial-IDFT
-      matmul (MXU), so no shard ever materializes all M channels.
-
-    ``frontend="fused"`` runs the ONE-kernel Mosaic channelizer
-    (models/channelizer.make_fused_channelizer — the 41 Gs/s bf16 path)
-    on each time shard's local slab, with the CHAN_HALO frame rows it
-    needs ppermuted from the left neighbor in place of the carried tail.
-    The kernel computes the full M-point output DFT locally, so the
-    ``channel`` mesh axis must have size 1 (shard wide output streams
-    over ``time``; use the "xla" tap-parallel front end to split the
-    channel dimension).  ``precision``: "x3" | "fast" (bf16).
+      matmul at full float32 precision, so no shard ever materializes
+      all M channels.
 
     Returns ``(init, apply)`` where ``apply(tail, x) -> (Y, new_tail)``:
     ``x``: (L,) sharded over time (replicated over ``channel``);
-    ``Y``: (T, M) sharded ``P('time', 'channel')`` ("xla") or
-    ``P('time')`` ("fused").
+    ``Y``: (T, M) sharded ``P('time', 'channel')``.
     """
     M = int(num_channels)
     K = int(taps_per_branch)
     if mesh is None:
         raise ValueError("make_sharded_channelizer requires a mesh")
-    if frontend not in ("xla", "fused"):
-        raise ValueError(f"unknown frontend {frontend!r}")
     n_cs = mesh.shape["channel"]
-    if frontend == "fused":
-        return _make_sharded_channelizer_fused(
-            M, K, mesh, attenuation, dtype, precision)
     if K % n_cs:
         raise ValueError(f"taps_per_branch ({K}) must divide by the channel "
                          f"axis size ({n_cs})")
@@ -626,8 +493,8 @@ def make_sharded_channelizer(num_channels: int, taps_per_branch: int = 8,
     # P[u, q] = x_ext[u*M + q] and G = reverse(taps[:K*M]).reshape(K, M),
     # z2[t, q] = sum_k' G[k', q] P[t + k', q] where z2[q] = z[r = M-1-q].
     # The tap-parallel split hands each channel shard K_loc of the K
-    # shifted multiply-adds (partial sums psum'd); the (T, K, M) advanced-
-    # index gather this replaces is pathological on the TPU backend.
+    # shifted multiply-adds (partial sums psum'd), with no (T, K, M)
+    # advanced-index gather.
     G = np.asarray(taps)[: K * M][::-1].reshape(K, M)
     # partial inverse-DFT extractor in z2's q indexing:
     #   Y[t, m] = sum_r z[t, r] e^{+2 pi i r m / M} = sum_q z2[t, q] W2[q, m],
@@ -670,7 +537,8 @@ def make_sharded_channelizer(num_channels: int, taps_per_branch: int = 8,
         W_loc = jax.lax.dynamic_slice_in_dim(
             jnp.asarray(W2_full, dtype=z2.dtype), c_idx * M_loc, M_loc,
             axis=1)
-        Y = z2 @ W_loc
+        # HIGHEST: a float32 matmul may otherwise run in TF32 on the GPU
+        Y = jnp.matmul(z2, W_loc, precision=jax.lax.Precision.HIGHEST)
         new_tail = from_last_shard(x[..., -halo_len:], "time")
         return Y, new_tail
 
@@ -679,66 +547,5 @@ def make_sharded_channelizer(num_channels: int, taps_per_branch: int = 8,
         mesh=mesh,
         in_specs=(P(), P("time")),
         out_specs=(P("time", "channel"), P()),
-    )
-    return init, jax.jit(mapped)
-
-
-def _make_sharded_channelizer_fused(M: int, K: int, mesh: Mesh,
-                                    attenuation: float, dtype,
-                                    precision: str):
-    """Time-sharded fused-kernel channelizer (see make_sharded_channelizer).
-
-    Each shard reshapes its slab to frame rows (2, U_loc, M), receives
-    the previous CHAN_HALO frame rows over ICI (``ppermute``) — exactly
-    the tail_rows contract of the single-chip fused kernel — and runs
-    the ONE-kernel Mosaic channelizer on its local frames.  Parity with
-    the single-chip fused path is bit-level (same kernel, same halo
-    values); parity with the complex commutator path is the kernel's
-    mode accuracy (>= 90 dB x3).
-    """
-    from ..models.channelizer import channelizer_taps, make_fused_channelizer
-    from ..ops.pallas_kernels import CHAN_HALO
-
-    if mesh.shape.get("channel", 1) != 1:
-        raise ValueError("fused frontend computes the full output DFT "
-                         "locally: channel mesh axis must have size 1 "
-                         "(use frontend='xla' to split channels)")
-    if K > CHAN_HALO:
-        raise ValueError(f"fused frontend supports taps_per_branch <= "
-                         f"{CHAN_HALO}")
-    taps_np = np.asarray(channelizer_taps(M, K, attenuation))
-
-    def init():
-        from ..utils.transfer import zeros_device
-
-        return zeros_device((2, CHAN_HALO, M), jnp.float32)
-
-    def local_fn(tail, x):
-        L_loc = x.shape[-1]
-        if L_loc % (CHAN_HALO * M):
-            raise ValueError(f"per-shard length must be a multiple of "
-                             f"{CHAN_HALO * M}")
-        U_loc = L_loc // M
-        TF = next(t for t in (512, 256, 128, 64, 32, 16, 8)
-                  if U_loc % t == 0)
-        apply2 = make_fused_channelizer(taps_np, M, U_loc, TF=TF,
-                                        mode=precision)
-        t_idx = jax.lax.axis_index("time")
-        x2 = jnp.stack([jnp.real(x), jnp.imag(x)]).astype(jnp.float32)
-        xf = x2.reshape(2, U_loc, M)
-        halo = left_halo(xf[:, U_loc - CHAN_HALO:, :], "time")
-        eff_tail = jnp.where(t_idx == 0, tail, halo)
-        Y2, _ = apply2(eff_tail, xf.reshape(2, L_loc))
-        Y = jax.lax.complex(Y2[:, :M], Y2[:, M:]).astype(dtype)
-        new_tail = from_last_shard(xf[:, U_loc - CHAN_HALO:, :], "time")
-        return Y, new_tail
-
-    mapped = jax.shard_map(
-        local_fn,
-        mesh=mesh,
-        in_specs=(P(), P("time")),
-        out_specs=(P("time"), P()),
-        # pallas_call out_shapes carry no vma annotation (as pallas_halo)
-        check_vma=False,
     )
     return init, jax.jit(mapped)

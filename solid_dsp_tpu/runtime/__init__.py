@@ -1,6 +1,6 @@
 """Native (C++) runtime: ring buffer, IQ file IO, threaded block pipeline.
 
-TPU-native equivalents of the reference's runtime-side components:
+Equivalents of the reference's runtime-side components:
 
 * :class:`CircularBuffer` — reference ``src/circular_buffer/mod.rs:55-628``
   (push/append/pop/release/linearized read + over/underflow errors), here a
@@ -12,7 +12,7 @@ TPU-native equivalents of the reference's runtime-side components:
   file blocks into the ring while the Python/JAX consumer computes: the
   host-side half of a double-buffered block pipeline feeding the device.
 
-The compute path stays JAX/XLA/Pallas; this layer keeps the host IO off the
+The compute path stays JAX/XLA; this layer keeps the host IO off the
 critical path, which is what the reference's mutable-state streaming objects
 did implicitly by being embedded in the caller's thread.
 """

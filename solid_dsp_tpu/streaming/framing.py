@@ -1,7 +1,7 @@
 """Block framing / overlap-save bookkeeping.
 
 The reference processes one sample at a time through a shift-register Window
-(window/mod.rs:63-71).  The TPU equivalent frames a stream into fixed-size
+(window/mod.rs:63-71).  The block equivalent frames a stream into fixed-size
 blocks, prepends the carried tail (the last ``ntaps - 1`` inputs), and runs
 one batched kernel per block.  These helpers hold that bookkeeping in one
 place so FIR / resamplers / channelizer all share it.
@@ -31,7 +31,7 @@ def frame_windows(x_ext: jnp.ndarray, length: int, stride: int = 1) -> jnp.ndarr
 
     Returns shape (..., T, length) with T = (n - length) // stride + 1.
     XLA lowers the gather to efficient strided loads; the result feeds an
-    MXU matmul against a tap matrix.
+    matmul against a tap matrix.
     """
     n = x_ext.shape[-1]
     T = (n - length) // stride + 1

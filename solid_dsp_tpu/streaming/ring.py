@@ -25,7 +25,7 @@ class BufferErrorCode:
     EMPTY = "empty"                  # EmptyBuffer
     NOT_ENOUGH = "not_enough"        # NotEnoughBuffer
     NEGATIVE = "negative"            # NegativeBuffer
-    TOO_MANY_ELEMENTS = NOT_ENOUGH   # legacy alias (pre-r4 name)
+    TOO_MANY_ELEMENTS = NOT_ENOUGH   # legacy alias (earlier name)
 
 
 class BufferError(RuntimeError):

@@ -2,7 +2,7 @@
 
 Parity: reference ``src/window/mod.rs`` (struct :8-14, push :63-71,
 to_vec :44-51, reset :54-56) — the live streaming-state container behind
-FIR/IIR/PFB/AutoCorrelator in the reference.  In the TPU build the jitted
+FIR/IIR/PFB/AutoCorrelator in the reference.  Here the jitted
 paths carry state as pytree tails instead (streaming.state); this class
 exists for API parity and host-side use.
 

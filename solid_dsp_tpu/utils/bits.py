@@ -1,9 +1,9 @@
-"""GF(2) bit-stream utilities: scramblers and CRC, TPU-formulated.
+"""GF(2) bit-stream utilities: scramblers and CRC as block ops.
 
 Framing-layer plumbing for the digital-link stack (FEC + interleaver +
 modem are in models/): energy-dispersal scramblers and cyclic redundancy
 checks.  Both are linear systems over GF(2), which is the whole trick for
-the TPU formulation:
+the Accelerator formulation:
 
 * the **additive scrambler** XORs a precomputed m-sequence — pure
   elementwise work;

@@ -15,7 +15,7 @@ from dataclasses import dataclass, field
 import jax
 
 __all__ = ["Timer", "benchmark", "trace", "Roofline", "roofline",
-           "fir_workload", "fft_workload", "CHIP_PEAKS"]
+           "fir_workload", "fft_workload", "CHIP_PEAKS", "chip_peaks"]
 
 
 @dataclass
@@ -91,13 +91,33 @@ def emit_metric(metric: str, value: float, unit: str, vs_baseline: float):
 # roofline analysis (SURVEY §5: per-kernel roofline counters)
 # --------------------------------------------------------------------------
 
-# Peak numbers per chip generation (f32 unless noted).  v5e from public
-# spec: 197 TFLOP/s bf16 -> ~49 TFLOP/s f32 MXU, 819 GB/s HBM.
+# Published peaks per accelerator, keyed by ``jax.Device.device_kind``.
+# NVIDIA H100 SXM data sheet (700 W part, dense rates without sparsity):
+# 3.35 TB/s HBM3, 989 TFLOP/s bf16, 495 TFLOP/s TF32, 67 TFLOP/s float32
+# outside the tensor cores.  A card set below 700 W cannot hold these.
 CHIP_PEAKS = {
-    "tpu-v5e": {"gflops_f32": 49_000.0, "gbps_hbm": 819.0},
-    "tpu-v4": {"gflops_f32": 68_500.0, "gbps_hbm": 1_228.0},
-    "cpu": {"gflops_f32": 100.0, "gbps_hbm": 50.0},  # rough host-class
+    "NVIDIA H100 80GB HBM3": {
+        "gbps_hbm": 3_350.0,
+        "gflops_bf16": 989_000.0,
+        "gflops_tf32": 495_000.0,
+        "gflops_f32": 67_000.0,
+    },
 }
+
+
+def chip_peaks(device_kind: str | None = None) -> dict:
+    """Peak table row for ``device_kind`` (default: the first JAX device).
+
+    A device missing from :data:`CHIP_PEAKS` is an error, never a default:
+    a roofline share against another chip's peak is meaningless.
+    """
+    if device_kind is None:
+        device_kind = jax.devices()[0].device_kind
+    try:
+        return CHIP_PEAKS[device_kind]
+    except KeyError:
+        raise KeyError(f"no published peaks for device {device_kind!r}; "
+                       f"known: {sorted(CHIP_PEAKS)}") from None
 
 
 @dataclass
@@ -124,17 +144,19 @@ class Roofline:
 
 
 def roofline(name: str, seconds: float, flops: float, bytes_moved: float,
-             chip: str = "tpu-v5e") -> Roofline:
-    """Classify a measured run against the chip's roofline.
+             device_kind: str | None = None,
+             compute: str = "f32") -> Roofline:
+    """Classify a measured run against the device's roofline.
 
-    flops / bytes_moved are the workload totals; ``bound`` is whichever
-    resource the run used the larger fraction of — at speed-of-light the
-    bound fraction approaches 1.0.
+    flops / bytes_moved are the workload totals; ``compute`` names the
+    peak the flops run at ("f32", "tf32" or "bf16"); ``bound`` is
+    whichever resource the run used the larger fraction of — at the
+    roofline the bound fraction approaches 1.0.
     """
-    peaks = CHIP_PEAKS.get(chip, CHIP_PEAKS["tpu-v5e"])
+    peaks = chip_peaks(device_kind)
     gflops = flops / seconds / 1e9
     gbps = bytes_moved / seconds / 1e9
-    fc = gflops / peaks["gflops_f32"]
+    fc = gflops / peaks[f"gflops_{compute}"]
     fm = gbps / peaks["gbps_hbm"]
     return Roofline(
         name=name,

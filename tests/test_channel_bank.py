@@ -1,4 +1,4 @@
-"""ChannelBank: channelizer + Pallas IIR bank + per-channel AGC."""
+"""ChannelBank: channelizer + IIR biquad bank + per-channel AGC."""
 
 import numpy as np
 import pytest

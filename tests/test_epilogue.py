@@ -1,8 +1,7 @@
-"""Collapsed decimated-rate epilogue + fully fused FM kernel parity.
+"""Collapsed decimated-rate epilogue parity.
 
 The rotate -> AGC-scale -> demod pipeline collapses for rotation/gain-
-invariant demods (ops/ddc.py epilogue helpers; the fully fused Mosaic
-kernel in ops/pallas_ddc.py::make_pallas_ddc_fm).  These tests gate every
+invariant demods (ops/ddc.py epilogue helpers).  These tests gate every
 collapsed path against the reference-shaped rotated chain
 (epilogue="rotate"), multi-block so seams and carried state are exercised.
 
@@ -17,7 +16,6 @@ import jax.numpy as jnp
 import pytest
 
 from solid_dsp_tpu.models.rx_chain import RxChainConfig, make_rx_chain
-from solid_dsp_tpu.ops import ddc as ddc_ops
 
 
 def _run_chain(cfg_kw, L, n_blocks=3, seed=7):
@@ -59,62 +57,42 @@ def _state_maxdiff(sta, stb):
 @pytest.mark.parametrize("demod", ["fm", "am"])
 @pytest.mark.parametrize("fmt", ["planar", "cf32"])
 def test_collapsed_epilogue_matches_rotated(demod, fmt):
-    """XLA pieces epilogue == rotated staging (small blocks, no kernel)."""
+    """Pieces epilogue == rotated staging (small blocks)."""
     L = 4096
     a, sta = _run_chain(dict(demod=demod, input_format=fmt,
-                             epilogue="auto", ddc_engine="xla"), L)
+                             epilogue="auto"), L)
     b, stb = _run_chain(dict(demod=demod, input_format=fmt,
-                             epilogue="rotate", ddc_engine="xla"), L)
+                             epilogue="rotate"), L)
     assert a.shape == b.shape
     assert _snr_db(a, b) > 90.0
     assert _state_maxdiff(sta, stb) < 1e-5
 
 
 @pytest.mark.parametrize("demod", ["fm", "am"])
-def test_collapsed_epilogue_kernel_interpret(demod):
-    """Pieces epilogue over the full-coverage kernel (interpret mode)."""
-    L = 65536 * 2   # big enough for kernel tiles
-    a, sta = _run_chain(dict(demod=demod, input_format="planar",
-                             epilogue="auto", ddc_engine="pallas",
-                             fir_precision="x3"), L, n_blocks=2)
-    b, stb = _run_chain(dict(demod=demod, input_format="planar",
-                             epilogue="rotate", ddc_engine="xla",
-                             fir_precision="highest"), L, n_blocks=2)
-    assert a.shape == b.shape
-    assert _snr_db(a, b) > 90.0
-    assert _state_maxdiff(sta, stb) < 1e-4
-
-
-def test_fully_fused_fm_kernel_interpret():
-    """make_pallas_ddc_fm path: audio + stats + state across 3 blocks."""
+@pytest.mark.parametrize("prec", ["highest", "x3"])
+def test_collapsed_epilogue_large_block(demod, prec):
+    """Pieces epilogue on blocks of many Toeplitz frames, planar input,
+    against the rotated staging at full precision."""
     L = 65536 * 2
-    a, sta = _run_chain(dict(demod="fm", input_format="planar",
-                             epilogue="auto", ddc_engine="pallas",
-                             fir_precision="x3"), L)
-    b, stb = _run_chain(dict(demod="fm", input_format="planar",
-                             epilogue="rotate", ddc_engine="xla",
-                             fir_precision="highest"), L)
+    a, sta = _run_chain(dict(demod=demod, input_format="planar",
+                             epilogue="auto", fir_precision=prec), L,
+                        n_blocks=2)
+    b, stb = _run_chain(dict(demod=demod, input_format="planar",
+                             epilogue="rotate", fir_precision="highest"), L,
+                        n_blocks=2)
     assert a.shape == b.shape
     assert _snr_db(a, b) > 90.0
     assert _state_maxdiff(sta, stb) < 1e-4
 
 
-def test_fm_fused_geometry_fallback():
-    """Unsupported geometry (unaligned L) returns None and the chain
-    still produces correct output through the pieces path."""
-    taps = RxChainConfig().design_taps()
-    res = ddc_ops.ddc_fm_fused(
-        taps, np.uint32(123456789), jnp.zeros((2, 63), jnp.float32),
-        jnp.uint32(0), jnp.zeros((2, 1000), jnp.float32), 4,
-        "x3", 0.1, jnp.float32(1.0), jnp.float32(0.0),
-        jnp.float32(1.0), engine="pallas")
-    assert res is None  # 1000 % (64*4) != 0
-    # chain on an unaligned block length still works (pieces path)
-    L = 5000
+@pytest.mark.parametrize("L", [5000, 4097 * 4, 12 * 1000])
+def test_fm_fused_geometry_fallback(L):
+    """Block lengths that leave a straggler piece after the last full
+    Toeplitz frame still match the rotated staging."""
     a, _ = _run_chain(dict(demod="fm", input_format="planar",
-                           epilogue="auto", ddc_engine="xla"), L)
+                           epilogue="auto"), L)
     b, _ = _run_chain(dict(demod="fm", input_format="planar",
-                           epilogue="rotate", ddc_engine="xla"), L)
+                           epilogue="rotate"), L)
     assert _snr_db(a, b) > 90.0
 
 
@@ -125,7 +103,7 @@ def test_epilogue_first_sample_exact():
     L = 65536 * 2
     cfg = RxChainConfig(dtype=jnp.complex64, demod="fm",
                         input_format="planar", epilogue="auto",
-                        ddc_engine="pallas", fir_precision="x3")
+                        fir_precision="x3")
     init, apply = make_rx_chain(cfg)
     st = init()
     outs = []

@@ -95,7 +95,7 @@ def _per_sample_rls_taps(x, d, n, lam, delta):
 
 
 def test_rls_block_form_matches_per_sample_reference():
-    """The MXU block normal-equation accumulation is algebraically equal to
+    """The matmul block normal-equation accumulation is algebraically equal to
     per-sample exponentially-weighted RLS at block boundaries."""
     from solid_dsp_tpu.models.equalizer import make_rls
 

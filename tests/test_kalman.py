@@ -211,7 +211,7 @@ def test_chunked_first_order_matches_scan():
 
 
 def test_make_kalman_lti_matches_scan():
-    """Modal chunked evaluation == sequential scan (the MXU fast path)."""
+    """Modal chunked evaluation == sequential scan (the matrix units fast path)."""
     from solid_dsp_tpu.ops.kalman import make_kalman_lti
 
     K, F = steady_state_gain(*cv_model(1.0, 0.05, 1.0))

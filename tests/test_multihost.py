@@ -3,7 +3,7 @@
 Spawns 2 worker processes that form one global 8-device mesh over
 jax.distributed (collectives between processes ride gRPC — the DCN analog)
 and run the sharded RxChain with channels spanning hosts.  SURVEY.md §5's
-"distributed communication backend" requirement, validated without TPU pod
+"distributed communication backend" requirement, validated without multi-host
 hardware.
 """
 

@@ -322,27 +322,3 @@ def test_arb_functional_matches_class_per_block():
         n1 = len(outs[0])
         err = np.max(np.abs(got[:n1] - ys[:n1]))
         assert err < 2e-4, (rate, err)
-
-
-def test_farrow_kernel_resampler_interpret_matches_xla_engine():
-    """Scalar-prefetch Mosaic resampler (interpret mode) == the XLA grid
-    engine — same positions, same taps, DMA-based extraction."""
-    from solid_dsp_tpu.ops.farrow import make_farrow_resampler
-    from solid_dsp_tpu.ops.pallas_resample import (
-        make_farrow_kernel_resampler)
-
-    ratio = 48000 / 44100
-    L = 8192
-    rng = np.random.default_rng(7)
-    x = (rng.standard_normal(2 * L)
-         + 1j * rng.standard_normal(2 * L)).astype(np.complex64)
-    i1, a1, _ = make_farrow_resampler(ratio, L)
-    i2, a2, _ = make_farrow_kernel_resampler(ratio, L, interpret=True)
-    s1, s2 = i1(), i2()
-    for blk in range(2):
-        xx = jnp.asarray(x[blk * L: (blk + 1) * L])
-        y1, n1, s1 = a1(s1, xx)
-        y2, n2, s2 = a2(s2, xx)
-        assert int(n1) == int(n2)
-        np.testing.assert_allclose(np.asarray(y2)[: int(n2)],
-                                   np.asarray(y1)[: int(n1)], atol=1e-5)

@@ -3,7 +3,7 @@
 The acceptance bound is >= 60 dB output SNR vs reference semantics.  The
 float64/complex128 paths in this framework ARE reference semantics (they
 reproduce the Rust doctest constants exactly — see golden tests); here the
-production complex64 TPU path is measured against the complex128 path on
+production complex64 path is measured against the complex128 path on
 each driver config and must clear 60 dB with margin.
 """
 
@@ -144,7 +144,7 @@ def test_config5_channelizer_256():
 
 
 # --------------------------------------------------------------------------
-# Independent reference models (VERDICT r1: de-circularize the SNR suite).
+# Independent reference models (the SNR suite must not be circular).
 # Each config below is gated against a model built from a DIFFERENT
 # mechanism than the implementation under test, so a shared algorithmic bug
 # cannot pass: direct-sum DFT vs the FFT engine, per-branch numpy convolve

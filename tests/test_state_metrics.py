@@ -14,6 +14,8 @@ from solid_dsp_tpu.models.rx_chain import RxChain, RxChainConfig, make_rx_chain,
 from solid_dsp_tpu.streaming.state import ChainState
 from solid_dsp_tpu.utils.metrics import MetricsCollector, rssi_db
 
+H100 = "NVIDIA H100 80GB HBM3"
+
 
 def _tone(n, f, amp=0.1, seed=0):
     rng = np.random.default_rng(seed)
@@ -78,7 +80,7 @@ class TestMetrics:
 
 
 class TestCheckpointValidation:
-    """Negative tests: structure drift must fail loudly (VERDICT r1 #8)."""
+    """Negative tests: structure drift must fail loudly."""
 
     def _chain_state(self, taps=8, extra=False):
         import jax.numpy as jnp
@@ -142,9 +144,10 @@ class TestRoofline:
         from solid_dsp_tpu.utils.profiling import fir_workload, roofline
 
         flops, byts = fir_workload(1 << 20, 64)
-        # 68 Gs/s chain-like rate: HBM-bound on v5e
-        r = roofline("fir", seconds=(1 << 20) / 68e9, flops=flops,
-                     bytes_moved=byts, chip="tpu-v5e")
+        # 2e11 samples/s against the H100 row at TF32 rates: 32 flop/B
+        # is under the TF32 ridge (~148 flop/B), so bytes bound
+        r = roofline("fir", seconds=(1 << 20) / 200e9, flops=flops,
+                     bytes_moved=byts, device_kind=H100, compute="tf32")
         assert r.bound == "memory"
         assert 0.0 < r.frac_memory <= 2.0
         assert "memory-bound" in repr(r)
@@ -153,9 +156,40 @@ class TestRoofline:
         from solid_dsp_tpu.utils.profiling import roofline
 
         # high arithmetic intensity (1000 flop/B) at 20 TFLOP/s: compute
-        r = roofline("matmul", seconds=0.05, flops=1e12, bytes_moved=1e9)
+        r = roofline("matmul", seconds=0.05, flops=1e12, bytes_moved=1e9,
+                     device_kind=H100)
         assert r.bound == "compute"
         assert r.frac_compute > r.frac_memory
+
+    def test_unknown_device_raises(self):
+        from solid_dsp_tpu.utils.profiling import chip_peaks, roofline
+
+        with pytest.raises(KeyError, match="no published peaks"):
+            chip_peaks("NVIDIA A100-SXM4-80GB")
+        with pytest.raises(KeyError):
+            roofline("x", seconds=1.0, flops=1.0, bytes_moved=1.0,
+                     device_kind="cpu")
+
+    def test_default_device_kind_is_looked_up(self):
+        # the CPU test backend has no published peaks: an error, not a
+        # silent fallback to another chip's row
+        from solid_dsp_tpu.utils.profiling import chip_peaks
+
+        with pytest.raises(KeyError):
+            chip_peaks()
+
+    def test_h100_peaks_and_compute_kinds(self):
+        from solid_dsp_tpu.utils.profiling import chip_peaks, roofline
+
+        pk = chip_peaks(H100)
+        assert pk == {"gbps_hbm": 3350.0, "gflops_bf16": 989000.0,
+                      "gflops_tf32": 495000.0, "gflops_f32": 67000.0}
+        # 1e12 flop in 1 s: share of the f32 vs bf16 peaks
+        r32 = roofline("m", 1.0, 1e12, 1.0, device_kind=H100)
+        r16 = roofline("m", 1.0, 1e12, 1.0, device_kind=H100,
+                       compute="bf16")
+        assert r32.frac_compute == pytest.approx(1e3 / 67000.0)
+        assert r16.frac_compute == pytest.approx(1e3 / 989000.0)
 
     def test_fft_workload_model(self):
         from solid_dsp_tpu.utils.profiling import fft_workload
